@@ -6,18 +6,26 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 Phases, one line each with its seconds:
-  1. device  — requires CUDA; prints the card's name and power limit;
-  2. build   — compiles ``styletts_zs_torch/csrc/*.cu`` with one nvcc call
-               (``-Xptxas -v`` register/shared-memory lines printed);
-  3. kernels — each hand-written kernel against its plain PyTorch version at
-               the main path's shapes, fp32 and bf16, masked and unmasked,
-               with kernel / plain / library times from CUDA events;
-  4. main    — zero-shot 1-step synthesis with the vocoder at full width
-               (``bench.py``'s configuration: 256 phonemes, 1024 frames,
-               bf16, weights from a seed) at batch 1 and 32, checking the
-               waveforms, the kernel launch counts per call, audio-s/s,
-               the real-time factor, peak memory, and the mel MAE against
-               the fp32 plain path on the CPU.
+  1. device     — requires CUDA; prints the card's name and power limit;
+  2. build      — compiles ``styletts_zs_torch/csrc/*.cu`` with one nvcc
+                  call (``-Xptxas -v`` register/shared-memory lines printed);
+  3. kernels    — each hand-written kernel against its plain PyTorch
+                  version at the main paths' shapes, fp32 and bf16, masked
+                  and unmasked, with kernel / plain / library times from
+                  CUDA events and the bound computed from the inputs;
+  4. main path  — zero-shot 1-step synthesis with the vocoder at full width
+                  (``bench.py``'s configuration: 256 phonemes, 1024 frames,
+                  bf16, weights from a seed) at batch 1 and 32, checking the
+                  waveforms, the kernel launch counts per call, audio-s/s,
+                  the real-time factor, peak memory, and the mel MAE against
+                  the fp32 plain path on the CPU;
+  5. profile    — device time by kernel for one batch-32 1-step call;
+  6. multi-step — acceptance config 3 (``configs/multistep_b32.toml``: batch
+                  32, 16 Heun steps, guidance 3, mel without the vocoder) on
+                  the same model: time per call, audio-s/s, peak memory, the
+                  launches per call of every kernel, and the fp32 card path
+                  against the fp32 CPU plain path at batch 1;
+  7. profile    — the same breakdown for one multi-step batch-32 call.
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result; without a CUDA device it stops in
@@ -25,6 +33,7 @@ phase 1.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -37,16 +46,25 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from styletts_zs_torch.config import Config, ModelConfig, RuntimeConfig  # noqa: E402
+from styletts_zs_torch.config import (Config, ModelConfig,  # noqa: E402
+                                      RuntimeConfig, load_config)
 from styletts_zs_torch.kernels import build, dispatch  # noqa: E402
+from styletts_zs_torch.kernels import full_attention as fa_kernel  # noqa: E402
 from styletts_zs_torch.kernels import local_attention as la_kernel  # noqa: E402
+from styletts_zs_torch.kernels import sampler as sampler_kernel  # noqa: E402
 from styletts_zs_torch.kernels import synthesis_head as head_kernel  # noqa: E402
+from styletts_zs_torch.models.diffusion import karras_sigmas  # noqa: E402
 from styletts_zs_torch.ops.attention import length_mask  # noqa: E402
-from styletts_zs_torch.pipelines.factory import init_params  # noqa: E402
+from styletts_zs_torch.pipelines.factory import (build_models,  # noqa: E402
+                                                 init_params)
 from styletts_zs_torch.pipelines.infer import make_synthesis_fn  # noqa: E402
 
+REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12       # dense bf16 tensor-core peak
+FP32_FLOP_PER_S = 67e12        # fp32 outside the tensor cores
+SM_CYCLES_PER_S = 1.98e9       # the SM's highest clock: a hold of n cycles
+                               # lasts at least n / this seconds
 
 # Tolerances of the kernel checks: |kernel - plain| <= atol + rtol * |plain|
 # everywhere.  fp32: the two sum the same products in another order
@@ -55,11 +73,17 @@ BF16_FLOP_PER_S = 989e12       # dense bf16 tensor-core peak
 # probabilities / sums the head conv in another order before rounding it
 # to bf16, so a value can land one bf16 step apart before exp() and the
 # overlap-add.
+# The sampler kernels round every operation as the plain version does
+# (1e-6 leaves room for a rare double rounding of its fp64 FMA).
 TOL = {
     "local_attention": {torch.float32: (1e-5, 1e-5),
                         torch.bfloat16: (1e-2, 1e-2)},
     "synthesis_head": {torch.float32: (1e-4, 1e-4),
                        torch.bfloat16: (2e-2, 2e-2)},
+    "full_attention": {torch.float32: (1e-5, 1e-5),
+                       torch.bfloat16: (1e-2, 1e-2)},
+    "sampler_euler": {torch.float32: (1e-6, 1e-6)},
+    "sampler_heun": {torch.float32: (1e-6, 1e-6)},
 }
 # The untrained duration head predicts log-durations near 0, which round to
 # 0 frames: every utterance would be empty.  Its bias is set so that the
@@ -68,12 +92,25 @@ DURATION_BIAS = float(np.log1p(3.5))
 # fp32 on the card against fp32 on the CPU, through the whole path: the same
 # arithmetic summed in another order through ~40 layers.
 FP32_PATH_TOL = 1e-3
+# The sampled style latent (|style| up to ~5.5) before the quantiser, which
+# would absorb an error below a code step: 31 fp32 denoiser calls summed in
+# another order (7.4e-6 measured on the card, batch 1).
+STYLE_TOL = 1e-4
+# The second text of the multi-step parity check, of max_text_len 256.
+SHORT_TEXT = 200
 SOURCES = {
     "local_attention": ("styletts_zs_torch/csrc/local_attention.cu",
                         "styletts_zs_tpu/kernels/attention_kernel.py:35"),
     "synthesis_head": ("styletts_zs_torch/csrc/synthesis_head.cu",
                        "styletts_zs_tpu/kernels/vocoder_kernels.py:341"),
+    "full_attention": ("styletts_zs_torch/csrc/full_attention.cu",
+                       "styletts_zs_tpu/kernels/attention_kernel.py:123"),
+    "sampler_euler": ("styletts_zs_torch/csrc/sampler.cu",
+                      "styletts_zs_tpu/kernels/sampler_kernel.py:26"),
+    "sampler_heun": ("styletts_zs_torch/csrc/sampler.cu",
+                     "styletts_zs_tpu/kernels/sampler_kernel.py:41"),
 }
+MULTISTEP_CONFIG = REPO / "configs" / "multistep_b32.toml"
 
 
 @contextmanager
@@ -89,19 +126,43 @@ def bench_config() -> Config:
                   runtime=RuntimeConfig(compute_dtype="bfloat16"))
 
 
-def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Mean milliseconds per call, from CUDA events after warm-up."""
+def timed(fn, iters: int = 10, warmup: int = 2) -> tuple[float, float]:
+    """(device ms, host ms) per call after warm-up.  The device time is from
+    CUDA events around ``iters`` calls that were enqueued while a sleep
+    kernel held the stream, so it counts the calls back to back on the
+    card and not the wrappers' host time, which a microsecond kernel would
+    otherwise measure; the host time is that of the enqueue.  A function
+    that waits for the card itself (the plain versions that copy a constant
+    from host memory) outlasts the hold; it is timed again without it."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    hold_s = 2 * iters * (time.perf_counter() - t) + 1e-3
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(hold_s * SM_CYCLES_PER_S))
     t0.record()
+    h0 = time.perf_counter()
     for _ in range(iters):
         fn()
     t1.record()
+    host_s = time.perf_counter() - h0
     torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / iters
+    if host_s >= hold_s:
+        t0.record()
+        for _ in range(iters):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters, host_s * 1e3 / iters
+
+
+def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Mean device milliseconds per call (``timed``)."""
+    return timed(fn, iters, warmup)[0]
 
 
 def check_close(name: str, label: str, dtype, out, ref) -> float:
@@ -111,7 +172,7 @@ def check_close(name: str, label: str, dtype, out, ref) -> float:
     diff = (out.float() - ref.float()).abs()
     err = diff.max().item()
     excess = (diff - rtol * ref.float().abs()).max().item()
-    print(f"  {name:15s} {str(dtype)[6:]:8s} {label:6s} max_abs_err "
+    print(f"  {name:15s} {str(dtype)[6:]:8s} {label:8s} max_abs_err "
           f"{err:.3e} (tol {atol:.0e} + {rtol:.0e}*|plain|, max |plain| "
           f"{ref.float().abs().max().item():.3f})")
     if not excess <= atol:
@@ -257,9 +318,173 @@ def check_synthesis_head(n_fft: int = 48, hop: int = 12, K: int = 7) -> dict:
             "bound_ms": bms, "bound_by": by, "library_ms": None}
 
 
-def phase_kernel_checks() -> dict:
+def _full_attention_inputs(B, Tq, Tk, dtype, g, *, n_prompt=0,
+                           self_attn=False):
+    """q (B, Tq, 8, 64) from a q projection and k/v as views of one fused
+    projection, as the model hands them over; with ``n_prompt`` the mask is
+    the denoiser's [text | padding | prompt] (text lengths from 0 to the
+    text), else a length mask (a length of 0 in row 0)."""
+    H, D = 8, 64
+    if self_attn:
+        qkv = torch.randn(B, Tq, 3 * H * D, generator=g, device="cuda")
+        q, k, v = (t.reshape(B, Tq, H, D) for t in
+                   qkv.to(dtype).split(H * D, dim=-1))
+    else:
+        q = torch.randn(B, Tq, H, D, generator=g, device="cuda").to(dtype)
+        kv = torch.randn(B, Tk, 2 * H * D, generator=g, device="cuda")
+        k, v = (t.reshape(B, Tk, H, D) for t in
+                kv.to(dtype).split(H * D, dim=-1))
+    Tt = Tk - n_prompt
+    lengths = torch.randint(1, Tt + 1, (B,), generator=g, device="cuda")
+    lengths[0] = 0
+    mask = length_mask(lengths, Tt)
+    if n_prompt:
+        mask = torch.cat([mask, torch.ones(B, n_prompt, dtype=torch.bool,
+                                           device="cuda")], dim=1)
+        mask[1] = False                  # and a row with no valid key
+    return q, k, v, mask
+
+
+def _full_attention_work(q, k, mask):
+    """Bytes (q/k/v/mask read once, out written once) and matmul FLOPs over
+    the (query, valid key) pairs; a row with no valid key averages all Tk."""
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    n_valid = mask.sum(-1).cpu()
+    n_valid = torch.where(n_valid == 0, Tk, n_valid)
+    it = q.element_size()
+    n_bytes = (2 * q.numel() + 2 * k.numel()) * it + mask.numel()
+    return n_bytes, 4 * H * D * Tq * int(n_valid.sum())
+
+
+def _time_full_attention(q, k, v, mask, label: str, card: str) -> dict:
+    ms, host_ms = timed(lambda: fa_kernel.full_attention_cuda(q, k, v, mask))
+    plain_ms = cuda_ms(lambda: fa_kernel.full_attention_plain(q, k, v, mask),
+                       iters=5)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask[:, None, None, :]), iters=5)
+    rate = FP32_FLOP_PER_S if q.dtype == torch.float32 else BF16_FLOP_PER_S
+    bms, by = bound_ms(*_full_attention_work(q, k, mask), rate)
+    B, Tq, H, D = q.shape
+    print(f"  full_attention {label} B{B} Tq{Tq} Tk{k.shape[1]} H{H} D{D}: "
+          f"kernel {ms:.4f} ms (host {host_ms:.4f} ms), plain {plain_ms:.4f} "
+          f"ms, sdpa {library_ms:.4f} ms, bound {bms:.4f} ms ({by})  "
+          f"[{card}]")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": library_ms}
+
+
+def check_full_attention(card: str) -> dict:
+    """The denoiser's self- and cross-attention (fp32, B 64 = the doubled
+    batch 32, K 50 codes, 256 text + 16 prompt keys) and the encoders'
+    (bf16, batch 32: text 256, prompt 240 and its 16-query pooling)."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    cases = {
+        "den_cross": (64, 50, 272, torch.float32, dict(n_prompt=16)),
+        "den_self": (64, 50, 50, torch.float32, dict(self_attn=True)),
+        "text": (32, 256, 256, torch.bfloat16, dict(self_attn=True)),
+        "prompt": (32, 240, 240, torch.bfloat16, dict(self_attn=True)),
+        "pool": (32, 16, 240, torch.bfloat16, {}),
+    }
+    errs, inputs = [], {}
+    for label, (B, Tq, Tk, dtype, kw) in cases.items():
+        q, k, v, mask = inputs[label] = _full_attention_inputs(
+            B, Tq, Tk, dtype, g, **kw)
+        masks = [mask, None] if label == "den_self" else [mask]
+        for m in masks:
+            out = fa_kernel.full_attention_cuda(q, k, v, m)
+            ref = fa_kernel.full_attention_plain(q, k, v, m)
+            torch.cuda.synchronize()
+            errs.append(check_close("full_attention",
+                                    label + ("" if m is not None else "-nm"),
+                                    dtype, out, ref))
+    res = _time_full_attention(*inputs["den_cross"], "fp32 den_cross", card)
+    res["bf16_text"] = _time_full_attention(*inputs["text"], "bf16 text",
+                                            card)
+    res["max_abs_err"] = max(errs)
+    return res
+
+
+def check_sampler(card: str) -> dict:
+    """Euler at step 0 and Heun at step 14 of the 16-step schedule, guidance
+    3, on (32, 50, 128) fp32 latents; the denoiser halves as views."""
+    sig = karras_sigmas(bench_config().model.diffusion, 16)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    shape = (32, 50, 128)
+    res = {}
+    for name, i in (("sampler_euler", 0), ("sampler_heun", 14)):
+        s_cur, s_next = sig[i], sig[i + 1]
+        x = torch.randn(*shape, generator=g, device="cuda") * float(s_cur)
+        den2 = torch.randn(2 * shape[0], *shape[1:], generator=g,
+                           device="cuda")
+        dc, du = den2[:shape[0]], den2[shape[0]:]
+        if name == "sampler_euler":
+            def kernel():
+                return sampler_kernel.euler_step_cuda(x, dc, du, s_cur, s_next,
+                                                      guidance=3.0)
+
+            def plain():
+                return sampler_kernel.euler_step_plain(x, dc, du, s_cur,
+                                                       s_next, guidance=3.0)
+            n_io, n_ops = 5, 7            # x, dc, du in; x', d out
+        else:
+            xe = x + torch.randn(*shape, generator=g, device="cuda")
+            d1 = torch.randn(*shape, generator=g, device="cuda")
+
+            def kernel():
+                return sampler_kernel.heun_correction_cuda(
+                    x, xe, dc, du, d1, s_cur, s_next, guidance=3.0)
+
+            def plain():
+                return sampler_kernel.heun_correction_plain(
+                    x, xe, dc, du, d1, s_cur, s_next, guidance=3.0)
+            n_io, n_ops = 6, 8            # x, xe, dc, du, d1 in; x' out
+        outs, refs = kernel(), plain()
+        torch.cuda.synchronize()
+        if isinstance(outs, torch.Tensor):
+            outs, refs = (outs,), (refs,)
+        err = max(check_close(name, f"step{i} {lab}", torch.float32, o, r)
+                  for o, r, lab in zip(outs, refs, ("x", "d")))
+        err = max(err, _sampler_tail(name, s_cur, s_next, g))
+        ms, host_ms = timed(kernel, iters=50)
+        plain_ms = cuda_ms(plain, iters=50)
+        bms, by = bound_ms(n_io * x.numel() * 4, n_ops * x.numel(),
+                           FP32_FLOP_PER_S)
+        print(f"  {name} {shape} fp32 sigma {s_cur:.4g} -> {s_next:.4g}: "
+              f"kernel {ms:.4f} ms (its wrapper's host time {host_ms:.4f} "
+              f"ms), plain {plain_ms:.4f} ms, bound {bms:.5f} ms ({by}); no "
+              f"single library call  [{card}]")
+        res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bms, "bound_by": by, "library_ms": None}
+    return res
+
+
+def _sampler_tail(name: str, s_cur, s_next, g) -> float:
+    """The kernel at 3*5*7 values (26 float4s and a tail of 1) against its
+    plain version; returns the max abs error."""
+    x, dc, du, xe, d1 = (torch.randn(3, 5, 7, generator=g, device="cuda")
+                         for _ in range(5))
+    if name == "sampler_euler":
+        outs = sampler_kernel.euler_step_cuda(x, dc, du, s_cur, s_next,
+                                              guidance=3.0)
+        refs = sampler_kernel.euler_step_plain(x, dc, du, s_cur, s_next,
+                                               guidance=3.0)
+    else:
+        outs = (sampler_kernel.heun_correction_cuda(
+            x, xe, dc, du, d1, s_cur, s_next, guidance=3.0),)
+        refs = (sampler_kernel.heun_correction_plain(
+            x, xe, dc, du, d1, s_cur, s_next, guidance=3.0),)
+    torch.cuda.synchronize()
+    return max(check_close(name, "tail", torch.float32, o, r)
+               for o, r in zip(outs, refs))
+
+
+def phase_kernel_checks(card: str) -> dict:
     return {"local_attention": check_local_attention(),
-            "synthesis_head": check_synthesis_head()}
+            "synthesis_head": check_synthesis_head(),
+            "full_attention": check_full_attention(card),
+            **check_sampler(card)}
 
 
 # ---------------------------------------------------------------------------
@@ -269,29 +494,58 @@ def phase_kernel_checks() -> dict:
 def reset_counts() -> None:
     la_kernel.launches = 0
     head_kernel.launches = 0
-    for name in dispatch.plain_calls:
-        dispatch.plain_calls[name] = 0
+    fa_kernel.launches = 0
+    for counts in (sampler_kernel.launches, dispatch.plain_calls):
+        for name in counts:
+            counts[name] = 0
 
 
 def kernel_counts(device: torch.device) -> dict:
     """CUDA launches on the card; plain-version calls on the CPU."""
     if device.type == "cuda":
         return {"local_attention": la_kernel.launches,
-                "synthesis_head": head_kernel.launches}
+                "synthesis_head": head_kernel.launches,
+                "full_attention": fa_kernel.launches,
+                **sampler_kernel.launches}
     return dict(dispatch.plain_calls)
 
 
-def expected_counts(cfg: Config, n_frames: int) -> dict:
-    """Kernel calls one synthesis call makes: one local attention per decoder
-    attention block (when the frame count is inside the gate) and one head."""
-    d, v = cfg.model.decoder, cfg.model.vocoder
+def sampler_calls(cfg: Config, one_step: bool, n_steps=None) -> tuple:
+    """(denoiser calls, Euler steps, Heun corrections) of one sampler run:
+    a correction wherever the next sigma of the schedule is above 0."""
+    if one_step:
+        return 1, 0, 0
+    sig = karras_sigmas(cfg.model.diffusion,
+                        n_steps or cfg.model.diffusion.n_steps)
+    n_heun = int((sig[1:] > 0).sum())
+    return len(sig) - 1 + n_heun, len(sig) - 1, n_heun
+
+
+def expected_counts(cfg: Config, n_frames: int, *, one_step: bool = True,
+                    n_steps=None, with_vocoder: bool = True) -> dict:
+    """Kernel calls one synthesis call makes: one local attention per
+    decoder attention block (inside its gate); a full attention per text,
+    prosody and prompt encoder block, the prompt pooling and, per denoiser
+    call, each block's self- and cross-attention (full attention has no
+    gate); the sampler's Euler steps and Heun corrections; one head with
+    the vocoder."""
+    m = cfg.model
+    d, v = m.decoder, m.vocoder
     n_attn = sum(1 for i in range(d.n_blocks) if (i + 1) % d.attn_every == 0)
-    head_ok = head_kernel.supported(
-        n_fft=v.istft_n_fft, hop=v.istft_hop, K=7,
-        dtype=getattr(torch, cfg.runtime.compute_dtype))
-    return {"local_attention": n_attn if la_kernel.supported(
-                n_frames, d.attn_window) else 0,
-            "synthesis_head": 1 if head_ok else 0}
+    n_den, n_euler, n_heun = sampler_calls(cfg, one_step, n_steps)
+    expect = {"local_attention": n_attn if la_kernel.supported(
+                  n_frames, d.attn_window) else 0,
+              "full_attention": (m.text_encoder.n_attn_layers
+                                 + m.prosody_encoder.n_layers
+                                 + m.prompt_encoder.n_layers + 1
+                                 + 2 * n_den * m.diffusion.n_layers)}
+    if not one_step:
+        expect.update(sampler_euler=n_euler, sampler_heun=n_heun)
+    if with_vocoder:
+        expect["synthesis_head"] = 1 if head_kernel.supported(
+            n_fft=v.istft_n_fft, hop=v.istft_hop, K=7,
+            dtype=getattr(torch, cfg.runtime.compute_dtype)) else 0
+    return expect
 
 
 def synth_inputs(cfg: Config, batch: int, device, seed: int = 0):
@@ -311,13 +565,17 @@ def synth_inputs(cfg: Config, batch: int, device, seed: int = 0):
             noise.to(device))
 
 
-def drive_main_path(cfg: Config, fn, inputs, *, device, n_calls: int) -> dict:
+def drive_main_path(cfg: Config, fn, inputs, *, device, n_calls: int,
+                    one_step: bool = True, n_steps=None,
+                    with_vocoder: bool = True) -> dict:
     """Run ``fn`` ``n_calls`` times, each timed to its end, with the kernel
-    counts set to 0 just before and read just after; check the counts,
+    counts set to 0 just before and read just after; check the counts
+    (every kernel of the path launched as often as expected, no other),
     shapes and finiteness."""
     device = torch.device(device)
     n_frames = cfg.model.max_frames
-    expect = expected_counts(cfg, n_frames)
+    expect = expected_counts(cfg, n_frames, one_step=one_step,
+                             n_steps=n_steps, with_vocoder=with_vocoder)
     if device.type == "cuda":
         torch.cuda.synchronize()
     times = []
@@ -329,19 +587,26 @@ def drive_main_path(cfg: Config, fn, inputs, *, device, n_calls: int) -> dict:
             torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     counts = kernel_counts(device)
-    for name, per_call in expect.items():
-        if per_call == 0 or counts[name] != per_call * n_calls:
-            raise AssertionError(f"{name}: {counts[name]} calls in {n_calls} "
-                                 f"synthesis calls, expected {per_call} each")
+    wrong = [f"{name}: {n} calls in {n_calls} synthesis calls, expected "
+             f"{expect.get(name, 0)} each" for name, n in counts.items()
+             if (name in expect and expect[name] == 0)
+             or n != expect.get(name, 0) * n_calls]
+    if wrong:
+        raise AssertionError("; ".join(wrong))
     B = inputs[0].shape[0]
-    n_up = int(np.prod(cfg.model.vocoder.upsample_rates))
-    n_samples = (n_frames * n_up - 1) * cfg.model.vocoder.istft_hop
-    if wav.shape != (B, n_samples) or not torch.isfinite(wav).all():
-        raise AssertionError(f"waveform {tuple(wav.shape)} (expected "
-                             f"{(B, n_samples)}) finite="
-                             f"{bool(torch.isfinite(wav).all())}")
-    if not torch.isfinite(out.mel.float()).all():
-        raise AssertionError("mel not finite")
+    if with_vocoder:
+        n_up = int(np.prod(cfg.model.vocoder.upsample_rates))
+        n_samples = (n_frames * n_up - 1) * cfg.model.vocoder.istft_hop
+        if wav.shape != (B, n_samples) or not torch.isfinite(wav).all():
+            raise AssertionError(f"waveform {tuple(wav.shape)} (expected "
+                                 f"{(B, n_samples)}) finite="
+                                 f"{bool(torch.isfinite(wav).all())}")
+    elif wav is not None:
+        raise AssertionError("a waveform from a path without the vocoder")
+    if out.mel.shape != (B, n_frames, cfg.model.audio.n_mels) or \
+            not torch.isfinite(out.mel.float()).all():
+        raise AssertionError(f"mel {tuple(out.mel.shape)} not finite or not "
+                             f"(B, frames, n_mels)")
     return {"seconds": float(np.median(times)), "times": times,
             "counts": counts, "per_call": expect, "out": out, "wav": wav}
 
@@ -376,7 +641,8 @@ def phase_main_path(card: str) -> dict:
               f"{n_calls}, min {min(ms):.1f}, max {max(ms):.1f}), frames "
               f"{int(lens.min())}..{int(lens.max())} of {m.max_frames}, waveform "
               f"{tuple(r['wav'].shape)} finite, kernel launches {r['counts']} "
-              f"in {n_calls} calls ({r['per_call']} per call), peak memory "
+              f"in {n_calls} calls ({r['per_call']} expected per call), "
+              f"peak memory "
               f"{peak_gb:.2f} GB  [{card}]")
         res[f"peak_gb_{batch}"] = peak_gb
     rtf1 = audio_s / res[1]["seconds"]
@@ -409,12 +675,123 @@ def phase_main_path(card: str) -> dict:
                                 ref_out.durations))
     print(f"  mel MAE bf16 card vs fp32 CPU plain path, batch 1: {mae:.5f} "
           f"(durations equal: {same_dur})")
-    return {"launches": res[1]["counts"], "fn": fn,
+    return {"counts": {k: res[1]["counts"][k] + res[32]["counts"][k]
+                       for k in res[1]["counts"]},
+            "n_calls": len(res[1]["times"]) + len(res[32]["times"]), "fn": fn,
             "inputs32": synth_inputs(cfg, 32, "cuda")}
 
 
-def phase_profile(fn, inputs, card: str) -> None:
-    """Device time by kernel for one batch-32 call, and the busy share."""
+def with_denoiser_gates(params, seed: int = 0):
+    """The denoiser's AdaLN modulation drawn like its other Dense layers
+    (LeCun normal, from ``seed``) instead of DiT's zero init, under which
+    every block is the identity and its attention never reaches the
+    sampled style.  A copy; the other weights are shared."""
+    g = torch.Generator().manual_seed(seed)
+    diff = dict(params["diffusion"])
+    for name, w in diff.items():
+        if ".adaln_mod.weight" in name:
+            diff[name] = torch.randn(w.shape, generator=g) * w.shape[1] ** -0.5
+    return {**params, "diffusion": diff}
+
+
+def style_latent(cfg: Config, params, inputs, *, device, n_steps, guidance):
+    """The multi-step sampler's (B, K, d_style) style before quantisation,
+    on the same path as ``make_synthesis_fn(one_step=False)``."""
+    mods = build_models(cfg, params, device=device)
+    phonemes, text_lengths, ref_mel, ref_lengths, noise = inputs
+    with torch.inference_mode():
+        text_mask = length_mask(text_lengths, phonemes.shape[1])
+        tokens, summary = mods.acoustic.encode_prompt(
+            ref_mel, length_mask(ref_lengths, ref_mel.shape[1]))
+        text_enc, _ = mods.acoustic.encode_text(phonemes, text_mask)
+        return mods.diffusion.sample(noise, text_enc, tokens, summary,
+                                     text_mask=text_mask, n_steps=n_steps,
+                                     guidance=guidance)
+
+
+def multistep_config() -> Config:
+    """``bench_config()``'s model with the serve settings of acceptance
+    config 3, read by the port's own ``load_config``."""
+    serve = load_config(str(MULTISTEP_CONFIG)).serve
+    if serve.one_step or serve.with_vocoder:
+        raise AssertionError(f"{MULTISTEP_CONFIG.name}: expected the "
+                             f"multi-step mel path, got {serve}")
+    return dataclasses.replace(bench_config(), serve=serve)
+
+
+def phase_multistep(card: str) -> dict:
+    cfg = multistep_config()
+    m, sv = cfg.model, cfg.serve
+    params = init_params(cfg, seed=0, device="cpu")
+    params["acoustic"]["duration_predictor.out.bias"].fill_(DURATION_BIAS)
+    params = with_denoiser_gates(params)
+    kw = dict(one_step=False, n_steps=sv.n_steps, guidance=sv.guidance,
+              with_vocoder=sv.with_vocoder)
+    fn = make_synthesis_fn(cfg, params, device="cuda", **kw)
+    inputs = synth_inputs(cfg, sv.batch_size, "cuda")
+    fn(*inputs)                                       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n_calls = 5
+    r = drive_main_path(cfg, fn, inputs, device="cuda", n_calls=n_calls,
+                        one_step=False, n_steps=sv.n_steps,
+                        with_vocoder=sv.with_vocoder)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    audio_s = sv.batch_size * m.max_frames * m.audio.hop_length \
+        / m.audio.sample_rate
+    ms = [t * 1e3 for t in r["times"]]
+    lens = r["out"].frame_lengths
+    print(f"  batch {sv.batch_size}, {sv.n_steps} steps, guidance "
+          f"{sv.guidance}, mel only: {r['seconds'] * 1e3:.1f} ms/call "
+          f"(median of {n_calls}, min {min(ms):.1f}, max {max(ms):.1f}), "
+          f"frames {int(lens.min())}..{int(lens.max())} of {m.max_frames}, "
+          f"mel {tuple(r['out'].mel.shape)} finite  [{card}]")
+    print(f"  audio-s/s: {audio_s / r['seconds']:.1f} ({audio_s:.1f} audio-s "
+          f"of mel per call); peak memory {peak_gb:.2f} GB  [{card}]")
+    print(f"  kernel launches per call: "
+          f"{ {k: n / n_calls for k, n in r['counts'].items()} } (counted "
+          f"{r['counts']} in {n_calls} calls; expected {r['per_call']})")
+    # fp32 on the card (the kernels) against fp32 on the CPU (the plain
+    # versions), the same weights and inputs, batch 2 with the second text
+    # shorter than the text, so the denoiser's cross-attention mask is
+    # [text | padding | prompt]
+    cfg32 = dataclasses.replace(cfg, runtime=RuntimeConfig(
+        compute_dtype="float32"))
+    inputs1 = synth_inputs(cfg, 2, "cpu")
+    inputs1[1][1] = SHORT_TEXT
+    t0 = time.perf_counter()
+    ref_out, _ = make_synthesis_fn(cfg32, params, device="cpu", **kw)(*inputs1)
+    ref_style = style_latent(cfg32, params, inputs1, device="cpu",
+                             n_steps=sv.n_steps, guidance=sv.guidance)
+    t_cpu = time.perf_counter() - t0
+    inputs1c = tuple(x.cuda() for x in inputs1)
+    out32, _ = make_synthesis_fn(cfg32, params, device="cuda", **kw)(*inputs1c)
+    style32 = style_latent(cfg32, params, inputs1c, device="cuda",
+                           n_steps=sv.n_steps, guidance=sv.guidance)
+    style_err = (style32.cpu() - ref_style).abs().max().item()
+    same_dur = bool(torch.equal(out32.durations.cpu(), ref_out.durations))
+    mel_err = (out32.mel.cpu() - ref_out.mel).abs().max().item()
+    print(f"  fp32 card vs fp32 CPU plain path, batch 2 (text lengths "
+          f"{inputs1[1].tolist()}), {sv.n_steps} steps: style latent before "
+          f"quantisation max_abs_err {style_err:.2e} (tol {STYLE_TOL:.0e}; "
+          f"max |style| {ref_style.abs().max().item():.2f}), durations "
+          f"equal: {same_dur}, mel max_abs_err {mel_err:.2e} (tol "
+          f"{FP32_PATH_TOL:.0e}; CPU runs {t_cpu:.1f} s)")
+    if not style_err <= STYLE_TOL:
+        raise AssertionError(f"fp32 multi-step card path vs CPU: style "
+                             f"latent {style_err}")
+    if not same_dur:
+        raise AssertionError("fp32 multi-step card durations differ from "
+                             "the CPU's")
+    if not mel_err <= FP32_PATH_TOL:
+        raise AssertionError(f"fp32 multi-step card path vs CPU: mel "
+                             f"{mel_err}")
+    return {"counts": r["counts"], "n_calls": n_calls, "fn": fn,
+            "inputs": inputs}
+
+
+def phase_profile(fn, inputs, card: str, label: str) -> None:
+    """Device time by kernel for one call, and the busy share."""
     from torch.profiler import ProfilerActivity, profile
     fn(*inputs)
     torch.cuda.synchronize()
@@ -430,13 +807,13 @@ def phase_profile(fn, inputs, card: str) -> None:
     if busy_us <= 0:
         print("  profiler saw no device time: breakdown not measured")
         return
-    print(f"  batch 32, one call: wall {wall_us / 1e3:.1f} ms, device busy "
+    print(f"  {label}, one call: wall {wall_us / 1e3:.1f} ms, device busy "
           f"{busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.0f}%), "
           f"{sum(e.count for e in kernels)} kernel launches  [{card}]")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"    {e.self_device_time_total / 1e3:8.2f} ms "
               f"{100 * e.self_device_time_total / busy_us:5.1f}% "
-              f"x{e.count:<4d} {e.key[:90]}")
+              f"x{e.count:<5d} {e.key[:90]}")
 
 
 def main() -> None:
@@ -445,21 +822,28 @@ def main() -> None:
     with phase("build"):
         phase_build()
     with phase("kernels"):
-        checks = phase_kernel_checks()
+        checks = phase_kernel_checks(card)
     with phase("main path"):
         main_res = phase_main_path(card)
     with phase("profile"):
-        phase_profile(main_res["fn"], main_res["inputs32"], card)
+        phase_profile(main_res["fn"], main_res["inputs32"], card,
+                      "1-step batch 32")
+    with phase("multi-step"):
+        multi = phase_multistep(card)
+    with phase("profile multi-step"):
+        phase_profile(multi["fn"], multi["inputs"], card,
+                      "multi-step batch 32")
     kernels = []
     for name, c in checks.items():
         src, replaces = SOURCES[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
-            "launches": main_res["launches"][name],
-            "max_abs_err": c["max_abs_err"], "ms": c["ms"],
-            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-            "bound_by": c["bound_by"], "library_ms": c["library_ms"]})
+            "launches": main_res["counts"][name] + multi["counts"][name],
+            "launches_per_call": {
+                "one_step": main_res["counts"][name] / main_res["n_calls"],
+                "multi_step": multi["counts"][name] / multi["n_calls"]},
+            **c})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

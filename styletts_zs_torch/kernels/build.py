@@ -28,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     # dtype, q, k, v, lengths, out, B, T, H, D, chunk,
     # q strides (b, t, h), k strides, v strides, scale, stream
@@ -37,6 +38,18 @@ _SIGNATURES = {
     # dtype, x, w, bias, syn, inv_env, out, B, T, C, K, n_fft, hop, stream
     "synthesis_head_fwd": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _I, _P],
+    # dtype, q, k, v, mask (or null), out, B, Tq, Tk, H, D,
+    # q strides (b, t, h), k strides, v strides, mask batch stride, scale,
+    # stream
+    "full_attention_fwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                           ctypes.c_float, _P],
+    # x, den_cond, den_uncond, x_out, d_out, n, s_cur, s_next - s_cur,
+    # guidance, stream
+    "sampler_euler_fwd": [_P, _P, _P, _P, _P, _L, _F, _F, _F, _P],
+    # x, x_euler, den2_cond, den2_uncond, d_cur, x_out, n,
+    # (s_next - s_cur) / 2, max(s_next, 1e-8), guidance, stream
+    "sampler_heun_fwd": [_P, _P, _P, _P, _P, _P, _L, _F, _F, _F, _P],
 }
 
 

@@ -1,17 +1,21 @@
 """Routing between the hand-written kernels and plain PyTorch.
 
-Counterpart of ``styletts_zs_tpu/kernels/dispatch.py``, which under
-production routing (``use_pallas=True``) launches exactly two Pallas kernels
-on the synthesis path: chunk-local attention and the fused synthesis head.
-Here those two go to their CUDA kernels for CUDA tensors and to the
-kernels' plain versions for CPU tensors; outside the JAX package's shape
-gates a call takes the plain op, as JAX takes its XLA twin.  The device of
-the tensor decides, nothing else: a CUDA tensor launches the kernel or the
-wrapper raises.
+Counterpart of ``styletts_zs_tpu/kernels/dispatch.py``.  Five ops go to a
+kernel written by hand for the card: chunk-local attention and the fused
+synthesis head (which the JAX package launches as Pallas kernels on the
+synthesis path), full attention (which JAX sends to its XLA twin, but
+which the denoiser runs ~500 times a multi-step call), and the sampler's
+Euler step and Heun correction (Pallas under ``use_pallas=True``).  Each
+goes to its CUDA kernel for CUDA tensors and to the kernel's plain version
+for CPU tensors; outside the JAX package's shape gates of chunk-local
+attention and the synthesis head a call takes the plain op, as JAX takes
+its XLA twin (full attention and the sampler have no gate).  Otherwise the
+device of the tensor decides, nothing else: a CUDA tensor launches the
+kernel or the wrapper raises.
 
-Full attention, the AdaIN conv block and the transposed conv are plain
-PyTorch here, as the JAX dispatcher sends their forward to XLA; their
-hand-written kernels are later work (``ROADMAP.md``).
+The AdaIN conv block and the transposed conv are plain PyTorch here, as
+the JAX dispatcher sends their forward to XLA; their hand-written kernels
+are later work (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -19,7 +23,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from styletts_zs_torch.kernels import full_attention as fa_kernel
 from styletts_zs_torch.kernels import local_attention as la_kernel
+from styletts_zs_torch.kernels import sampler as sampler_kernel
 from styletts_zs_torch.kernels import synthesis_head as head_kernel
 from styletts_zs_torch.ops import attention as attn_ops
 from styletts_zs_torch.ops import conv as conv_ops
@@ -27,7 +33,8 @@ from styletts_zs_torch.ops import norm as norm_ops
 
 # Calls that took a kernel's plain version because the tensor lay on the CPU
 # (the CUDA launches are counted by the wrappers themselves).
-plain_calls = {"local_attention": 0, "synthesis_head": 0}
+plain_calls = {"local_attention": 0, "synthesis_head": 0, "full_attention": 0,
+               "sampler_euler": 0, "sampler_heun": 0}
 
 
 def local_attention(q, k, v, *, chunk: int,
@@ -50,8 +57,39 @@ def local_attention(q, k, v, *, chunk: int,
 
 
 def full_attention(q, k, v, *, kv_mask: torch.Tensor | None = None):
-    """Full (cross- or self-) attention (B, Tq, H, D) x (B, Tk, H, D)."""
-    return attn_ops.cross_attention(q, k, v, kv_mask=kv_mask)
+    """Full (cross- or self-) attention (B, Tq, H, D) x (B, Tk, H, D);
+    ``kv_mask`` is any (B, Tk) key mask."""
+    if q.is_cuda:
+        return fa_kernel.full_attention_cuda(q, k, v, kv_mask)
+    plain_calls["full_attention"] += 1
+    return fa_kernel.full_attention_plain(q, k, v, kv_mask)
+
+
+def fused_euler_step(x, den_cond, den_uncond, s_cur, s_next, *,
+                     guidance: float):
+    """CFG combine + score + Euler step: (x_euler, d), fp32.  The sigmas
+    are host numbers from the schedule."""
+    if x.is_cuda:
+        return sampler_kernel.euler_step_cuda(x, den_cond, den_uncond, s_cur,
+                                              s_next, guidance=guidance)
+    sampler_kernel.check_operands(x, den_cond, den_uncond)
+    plain_calls["sampler_euler"] += 1
+    return sampler_kernel.euler_step_plain(x, den_cond, den_uncond, s_cur,
+                                           s_next, guidance=guidance)
+
+
+def fused_heun_correction(x, x_euler, den2_cond, den2_uncond, d_cur, s_cur,
+                          s_next, *, guidance: float):
+    """CFG combine + Heun correction: x_next, fp32."""
+    if x.is_cuda:
+        return sampler_kernel.heun_correction_cuda(
+            x, x_euler, den2_cond, den2_uncond, d_cur, s_cur, s_next,
+            guidance=guidance)
+    sampler_kernel.check_operands(x, x_euler, den2_cond, den2_uncond, d_cur)
+    plain_calls["sampler_heun"] += 1
+    return sampler_kernel.heun_correction_plain(
+        x, x_euler, den2_cond, den2_uncond, d_cur, s_cur, s_next,
+        guidance=guidance)
 
 
 def adain_conv_block(x, scale, shift, kernel1, kernel2, *, dilation: int = 1):

@@ -1,0 +1,91 @@
+"""Full attention with a per-key mask: the CUDA kernel's wrapper and its
+plain version.
+
+Port of ``styletts_zs_tpu/kernels/attention_kernel.py::_full_attn_kernel``
+(``full_attention_pallas``).  The kernel is ``csrc/full_attention.cu``.
+Both functions here take (B, Tq, H, D) queries, (B, Tk, H, D) keys and
+values and an optional (B, Tk) key mask, and compute the Pallas kernel's
+function: fp32 logits q·kᵀ·D^-0.5, masked keys at ``NEG_INF`` (so a row
+with no valid key averages all Tk keys), probabilities normalised with
+max(sum, 1e-30) and rounded to v's dtype before P·V, an fp32 accumulate,
+the output in q's dtype.  The mask need not be a length mask: the
+denoiser's cross-attention keys are [text | padding | prompt].  The kernel
+takes any Tq and Tk (its grid covers the queries, its loop walks the key
+tiles), so unlike the Pallas kernel there is no shape gate.
+"""
+from __future__ import annotations
+
+import torch
+
+from styletts_zs_torch.kernels import build
+from styletts_zs_torch.ops.attention import NEG_INF
+
+launches = 0   # CUDA kernel launches; ``full_attention_cuda`` adds one each
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def full_attention_plain(q, k, v, mask=None) -> torch.Tensor:
+    """Plain PyTorch version of the kernel (the Pallas kernel's steps)."""
+    D = q.shape[-1]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * D ** -0.5
+    if mask is not None:
+        logits = logits.masked_fill(~mask.bool()[:, None, None, :], NEG_INF)
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    probs = e / torch.clamp(e.sum(dim=-1, keepdim=True), min=1e-30)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(),
+                       v.float())
+    return out.to(q.dtype)
+
+
+def full_attention_cuda(q, k, v, mask=None) -> torch.Tensor:
+    """Launch ``csrc/full_attention.cu`` on the current stream.
+
+    q (B, Tq, H, D), k/v (B, Tk, H, D): CUDA tensors of one dtype (fp32 or
+    bf16), last dimension contiguous, any strides elsewhere (bf16: 16-byte
+    aligned pointers and strides in multiples of 8, as the views of the
+    model's fused projections are); mask (B, Tk) bool with a contiguous
+    last dimension, or None.  The kernel takes D = 64 and raises on
+    anything else.
+    """
+    global launches
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_cuda or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name}: need a CUDA tensor like q, got "
+                             f"{t.device} {t.dtype}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: last dimension must be contiguous")
+        if t.dtype == torch.bfloat16 and (
+                t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3])):
+            raise ValueError(f"{name}: bf16 needs a 16-byte aligned pointer "
+                             f"and strides in multiples of 8, got "
+                             f"{t.stride()}")
+    if k.shape != (B, Tk, H, D) or v.shape != k.shape:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+                         f"fit q {tuple(q.shape)}")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"dtype {q.dtype} not supported")
+    if D != 64:
+        raise ValueError(f"the kernel takes D=64, got D={D}")
+    m_ptr, m_sb = None, 0
+    if mask is not None:
+        if mask.shape != (B, Tk) or mask.dtype != torch.bool or \
+                mask.device != q.device or mask.stride(-1) != 1:
+            raise ValueError(f"mask must be (B, Tk) bool on q's device with "
+                             f"a contiguous last dimension, got "
+                             f"{mask.dtype} {tuple(mask.shape)}")
+        m_ptr, m_sb = mask.data_ptr(), mask.stride(0)
+    out = torch.empty(B, Tq, H, D, dtype=q.dtype, device=q.device)
+    lib = build.library().lib
+    rc = lib.full_attention_fwd(
+        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), m_ptr,
+        out.data_ptr(), B, Tq, Tk, H, D,
+        q.stride(0), q.stride(1), q.stride(2),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2), m_sb,
+        D ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(rc, "full_attention_fwd")
+    launches += 1
+    return out

@@ -1,22 +1,40 @@
-"""Time-varying style diffusion: the EDM denoiser and the 1-step sampler.
+"""Time-varying style diffusion: the EDM denoiser and its two samplers.
 
-Counterpart of ``styletts_zs_tpu/models/diffusion.py`` for the main path:
-``StyleDenoiser`` and ``StyleDiffusion.sample_onestep`` — one CFG-doubled
-denoiser call at sigma_max.  The initial noise is an input (a tensor, or a
-``torch.Generator`` to draw it from), so a test can hand in JAX's noise.
-The diffusion net runs in fp32 whatever the compute dtype
-(``RuntimeConfig.diffusion_dtype``).  The multi-step Heun sampler and the
-training loss are later slices.
+Counterpart of ``styletts_zs_tpu/models/diffusion.py``: ``StyleDenoiser``,
+the multi-step Heun sampler over the Karras schedule
+(``StyleDiffusion.sample``) and the distilled 1-step path
+(``sample_onestep``), each step one CFG-doubled denoiser call.  The
+initial noise is an input (a tensor, or a ``torch.Generator`` to draw it
+from), so a test can hand in JAX's noise.  The schedule lives on the host
+and the step loop is a Python loop, in place of JAX's ``lax.scan`` and
+``lax.cond``; the step tail (CFG combine, score, Euler / Heun update) goes
+through ``dispatch.fused_euler_step`` / ``fused_heun_correction``.  The
+diffusion net runs in fp32 whatever the compute dtype
+(``RuntimeConfig.diffusion_dtype``).  The training loss belongs to the
+training slice.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
 from styletts_zs_torch.config import DiffusionConfig, StyleConfig
+from styletts_zs_torch.kernels import dispatch
 from styletts_zs_torch.models.layers import (MLP, AdaLNTransformerBlock, Dense,
                                              LayerNorm, position_table,
                                              sinusoidal_embedding)
+
+
+def karras_sigmas(cfg: DiffusionConfig, n_steps: int) -> np.ndarray:
+    """Karras et al. noise schedule, length n_steps+1 (last = 0): computed
+    in float64 and rounded to float32, as the JAX package does."""
+    i = np.arange(n_steps, dtype=np.float64)
+    inv_rho = 1.0 / cfg.rho
+    s = (cfg.sigma_max ** inv_rho
+         + i / max(n_steps - 1, 1) * (cfg.sigma_min ** inv_rho
+                                      - cfg.sigma_max ** inv_rho)) ** cfg.rho
+    return np.concatenate([s, [0.0]]).astype(np.float32)
 
 
 class StyleDenoiser(nn.Module):
@@ -96,6 +114,55 @@ class StyleDiffusion(nn.Module):
         summary2 = torch.cat([prompt_summary, null_sum], dim=0)
         return ctx2, mask2, summary2
 
+    def _denoise_pair(self, x, sigma, ctx2, mask2, summary2):
+        """One CFG-doubled denoiser call at the host number ``sigma``:
+        returns (d_cond, d_uncond), views of the (2B, K, d) output."""
+        B = x.shape[0]
+        sig2 = torch.full((2 * B,), float(sigma), dtype=torch.float32,
+                          device=x.device)
+        den2 = self.denoiser(torch.cat([x, x], dim=0), sig2, ctx2, mask2,
+                             summary2)
+        return den2[:B], den2[B:]
+
+    def _noise(self, noise, like):
+        """The (B, K, d_style) standard-normal draw, or draw it from a
+        ``torch.Generator`` on its device."""
+        if isinstance(noise, torch.Generator):
+            noise = torch.randn(like.shape[0], self.style_cfg.n_codes,
+                                self.style_cfg.d_style, generator=noise,
+                                device=noise.device)
+        return noise.to(like.device).float()
+
+    def sample(self, noise, text_enc, prompt_tokens, prompt_summary, *,
+               text_mask=None, n_steps: int | None = None,
+               guidance: float | None = None):
+        """Multi-step Heun sampler over the Karras schedule (acceptance
+        config 3): each step one CFG-doubled denoiser call, the fused Euler
+        step, and, unless the next sigma is 0, a second call and the fused
+        Heun correction.  The schedule is host numpy float32, so the branch
+        needs no device sync.  Returns (B, K, d_style) in the denoiser's
+        dtype."""
+        c = self.cfg
+        n_steps = n_steps or c.n_steps
+        g = float(c.cfg_scale if guidance is None else guidance)
+        sigmas = karras_sigmas(c, n_steps)
+        x = self._noise(noise, text_enc) * float(sigmas[0])
+        ctx2, mask2, summary2 = self._cfg_context(
+            text_enc, prompt_tokens, prompt_summary, text_mask)
+        for i in range(n_steps):
+            s_cur, s_next = sigmas[i], sigmas[i + 1]
+            dc, du = self._denoise_pair(x, s_cur, ctx2, mask2, summary2)
+            x_euler, d_cur = dispatch.fused_euler_step(
+                x, dc, du, s_cur, s_next, guidance=g)
+            if s_next > 0:
+                dc2, du2 = self._denoise_pair(x_euler, s_next, ctx2, mask2,
+                                              summary2)
+                x = dispatch.fused_heun_correction(
+                    x, x_euler, dc2, du2, d_cur, s_cur, s_next, guidance=g)
+            else:
+                x = x_euler
+        return x.to(self.denoiser.in_proj.weight.dtype)
+
     def sample_onestep(self, noise, text_enc, prompt_tokens, prompt_summary,
                        *, text_mask=None, guidance: float | None = None):
         """Distilled 1-step path: one CFG-doubled denoiser call at sigma_max.
@@ -105,18 +172,10 @@ class StyleDiffusion(nn.Module):
         """
         c = self.cfg
         guidance = c.cfg_scale if guidance is None else guidance
-        B = text_enc.shape[0]
-        if isinstance(noise, torch.Generator):
-            noise = torch.randn(B, self.style_cfg.n_codes,
-                                self.style_cfg.d_style, generator=noise,
-                                device=noise.device).to(text_enc.device)
-        x = noise.float() * c.sigma_max
+        x = self._noise(noise, text_enc) * c.sigma_max
         ctx2, mask2, summary2 = self._cfg_context(
             text_enc, prompt_tokens, prompt_summary, text_mask)
-        sig2 = torch.full((2 * B,), c.sigma_max, dtype=torch.float32,
-                          device=x.device)
-        den2 = self.denoiser(torch.cat([x, x], dim=0), sig2, ctx2, mask2,
-                             summary2)
-        d_cond, d_uncond = den2[:B], den2[B:]
+        d_cond, d_uncond = self._denoise_pair(x, c.sigma_max, ctx2, mask2,
+                                              summary2)
         den = d_uncond + guidance * (d_cond - d_uncond)
         return den.to(self.denoiser.in_proj.weight.dtype)

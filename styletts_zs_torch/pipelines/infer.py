@@ -1,10 +1,11 @@
 """Zero-shot inference: phonemes + ~3 s reference audio -> waveform.
 
 Counterpart of ``styletts_zs_tpu/pipelines/infer.py``: prompt encoding,
-text encoding, the 1-step CFG style diffusion, lattice projection, duration
-and prosody prediction, mel decoding and the vocoder, in one call.  The
-initial diffusion noise is an input (a (B, K, d_style) tensor or a
-``torch.Generator``).  The multi-step sampler is a later slice.
+text encoding, the CFG style diffusion (the distilled 1-step path, or the
+multi-step Heun sampler with ``one_step=False``), lattice projection,
+duration and prosody prediction, mel decoding and the vocoder, in one
+call.  The initial diffusion noise is an input (a (B, K, d_style) tensor
+or a ``torch.Generator``).
 """
 from __future__ import annotations
 
@@ -17,8 +18,9 @@ from styletts_zs_torch.pipelines.factory import (Models, build_models,
                                                  resolve_device)
 
 
-def _synthesis_program(models: Models, cfg: Config, *, guidance=None,
-                       n_frames=None, with_vocoder: bool = True):
+def _synthesis_program(models: Models, cfg: Config, *, one_step: bool = True,
+                       n_steps=None, guidance=None, n_frames=None,
+                       with_vocoder: bool = True):
     ac, df, vo = models.acoustic, models.diffusion, models.vocoder
     frames = n_frames or cfg.model.max_frames
 
@@ -28,8 +30,13 @@ def _synthesis_program(models: Models, cfg: Config, *, guidance=None,
         ref_mask = length_mask(ref_lengths, ref_mel.shape[1])
         tokens, summary = ac.encode_prompt(ref_mel, ref_mask)
         encoded = ac.encode_text(phonemes, text_mask)
-        style = df.sample_onestep(noise, encoded[0], tokens, summary,
-                                  text_mask=text_mask, guidance=guidance)
+        if one_step:
+            style = df.sample_onestep(noise, encoded[0], tokens, summary,
+                                      text_mask=text_mask, guidance=guidance)
+        else:
+            style = df.sample(noise, encoded[0], tokens, summary,
+                              text_mask=text_mask, n_steps=n_steps,
+                              guidance=guidance)
         styled = ac.quantize_style(style)
         out = ac.text_to_mel(phonemes, styled, text_mask=text_mask,
                              n_frames=frames, encoded=encoded)
@@ -41,6 +48,7 @@ def _synthesis_program(models: Models, cfg: Config, *, guidance=None,
 
 
 def make_synthesis_fn(cfg: Config, params, *, one_step: bool = True,
+                      n_steps: int | None = None,
                       guidance: float | None = None,
                       n_frames: int | None = None,
                       with_vocoder: bool = True, device=None):
@@ -48,10 +56,12 @@ def make_synthesis_fn(cfg: Config, params, *, one_step: bool = True,
 
         fn(phonemes, text_lengths, ref_mel, ref_lengths, noise)
             -> (AcousticOutput, waveform | None)
+
+    ``one_step=False`` samples the style with the multi-step Heun sampler
+    (``n_steps``, default ``DiffusionConfig.n_steps``).
     """
-    if not one_step:
-        raise NotImplementedError("the multi-step sampler is not ported yet")
     return _synthesis_program(build_models(cfg, params, device=device), cfg,
+                              one_step=one_step, n_steps=n_steps,
                               guidance=guidance, n_frames=n_frames,
                               with_vocoder=with_vocoder)
 
@@ -85,10 +95,12 @@ class Synthesizer:
         self.models = build_models(cfg, params, device=self.device)
 
     def synthesize(self, phonemes, ref_wav, *, text_lengths=None, noise=None,
-                   guidance=None, n_frames=None, with_vocoder: bool = True):
+                   one_step: bool = True, n_steps=None, guidance=None,
+                   n_frames=None, with_vocoder: bool = True):
         """phonemes (B, T_text) int; ref_wav (B, T_samples) ~3 s audio;
         ``noise`` as for ``StyleDiffusion.sample_onestep`` (default: a
-        generator seeded 0 on the model's device)."""
+        generator seeded 0 on the model's device); ``one_step=False`` runs
+        the multi-step sampler with ``n_steps``."""
         B = phonemes.shape[0]
         phonemes = phonemes.to(self.device)
         if text_lengths is None:
@@ -100,7 +112,8 @@ class Synthesizer:
                                            self.cfg.model.audio)
         ref_lengths = torch.full((B,), ref_mel.shape[1], dtype=torch.int32,
                                  device=self.device)
-        fn = _synthesis_program(self.models, self.cfg, guidance=guidance,
+        fn = _synthesis_program(self.models, self.cfg, one_step=one_step,
+                                n_steps=n_steps, guidance=guidance,
                                 n_frames=n_frames, with_vocoder=with_vocoder)
         return fn(phonemes, text_lengths.to(self.device), ref_mel,
                   ref_lengths, noise)

@@ -1,8 +1,10 @@
-"""The whole slice against JAX: zero-shot 1-step synthesis with the vocoder.
+"""The whole path against JAX: zero-shot synthesis, 1-step with the vocoder
+and multi-step without it.
 
-JAX runs ``make_synthesis_fn(one_step=True, with_vocoder=True)`` in fp32
-with the XLA twins (``use_pallas=False``); the port runs on the CPU, where
-its two kernels take their plain versions, with the same weights and the
+JAX runs ``make_synthesis_fn(one_step=True, with_vocoder=True)`` and
+``make_synthesis_fn(one_step=False, n_steps=4, with_vocoder=False)`` in
+fp32 with the XLA twins (``use_pallas=False``); the port runs on the CPU,
+where its kernels take their plain versions, with the same weights and the
 same initial noise (``jax.random.normal(rng, (B, K, d))`` handed over).
 Durations must be equal; mel and waveform within atol 1e-4 (fp32 sums in
 another order through ~20 layers).  Also the CPU rehearsal of
@@ -109,6 +111,68 @@ def test_synthesizer_from_waveform(world):
     assert torch.equal(wav_a, wav_b) and torch.isfinite(wav_a).all()
 
 
+N_STEPS = 4
+
+
+@pytest.fixture(scope="module")
+def multistep_ref(world):
+    jcfg, _, tree, _, inputs, _, _, _ = world
+    out, wav = jax.jit(j_synth(jcfg, one_step=False, n_steps=N_STEPS,
+                               with_vocoder=False))(
+        to_jax(tree), *map(jnp.asarray, inputs), jax.random.PRNGKey(5))
+    assert wav is None
+    return out
+
+
+def test_zero_shot_multistep_matches_jax(world, multistep_ref):
+    """The multi-step Heun sampler (7 CFG-doubled denoiser calls) on the
+    whole path, mel without the vocoder."""
+    jcfg, tcfg, tree, params, inputs, noise, _, _ = world
+    fn = make_synthesis_fn(tcfg, params, one_step=False, n_steps=N_STEPS,
+                           with_vocoder=False, device="cpu")
+    out, wav = fn(*map(t, inputs), t(noise))
+    assert wav is None
+    np.testing.assert_array_equal(out.durations.numpy(),
+                                  np.asarray(multistep_ref.durations))
+    assert int(out.frame_lengths.min()) > 0
+    for name in ("mel", "f0", "energy", "log_dur"):
+        np.testing.assert_allclose(n(getattr(out, name)),
+                                   n(getattr(multistep_ref, name)),
+                                   atol=ATOL, rtol=0, err_msg=name)
+
+
+def test_synthesizer_multistep(world, multistep_ref):
+    """``Synthesizer.synthesize(one_step=False)`` runs the same program as
+    ``make_synthesis_fn(one_step=False)``, and differs from the 1-step
+    path."""
+    jcfg, tcfg, tree, params, inputs, noise, ref_out, _ = world
+    wav_ref = np.random.default_rng(6).standard_normal((2, 4000)) \
+        .astype(np.float32) * 0.1
+    syn = Synthesizer(tcfg, params, device="cpu")
+    out, wav = syn.synthesize(t(inputs[0]), t(wav_ref),
+                              text_lengths=t(inputs[1]), noise=t(noise),
+                              one_step=False, n_steps=N_STEPS,
+                              with_vocoder=False)
+    assert wav is None
+    mel = stft_mel(jcfg, wav_ref)
+    lens = torch.full((2,), mel.shape[1], dtype=torch.int32)
+    out2, _ = make_synthesis_fn(tcfg, params, one_step=False, n_steps=N_STEPS,
+                                with_vocoder=False, device="cpu")(
+        t(inputs[0]), t(inputs[1]), t(mel), lens, t(noise))
+    np.testing.assert_array_equal(out.durations.numpy(),
+                                  out2.durations.numpy())
+    np.testing.assert_allclose(n(out.mel), n(out2.mel), atol=ATOL, rtol=0)
+    one, _ = syn.synthesize(t(inputs[0]), t(wav_ref),
+                            text_lengths=t(inputs[1]), noise=t(noise),
+                            with_vocoder=False)
+    assert not torch.allclose(one.mel, out.mel)
+
+
+def stft_mel(jcfg, wav):
+    return np.asarray(j_stft.mel_spectrogram(jnp.asarray(wav),
+                                             jcfg.model.audio))
+
+
 def _chip_smoke():
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   REPO / "chip_smoke.py")
@@ -129,8 +193,14 @@ def test_chip_smoke_main_path_rehearsal_on_cpu():
     fn = make_synthesis_fn(cfg, params, device="cpu")
     r = cs.drive_main_path(cfg, fn, cs.synth_inputs(cfg, 2, "cpu"),
                            device="cpu", n_calls=2)
-    assert r["per_call"] == {"local_attention": 1, "synthesis_head": 1}
-    assert r["counts"] == {"local_attention": 2, "synthesis_head": 2}
+    # full attention: 1 text + 1 prosody + 1 prompt encoder block (720
+    # frames: no gate), the prompt pooling and 2 denoiser blocks' self- and
+    # cross-attention
+    assert r["per_call"] == {"local_attention": 1, "synthesis_head": 1,
+                             "full_attention": 8}
+    assert r["counts"] == {"local_attention": 2, "synthesis_head": 2,
+                           "full_attention": 16, "sampler_euler": 0,
+                           "sampler_heun": 0}
     assert int(r["out"].frame_lengths.min()) > 0
     # a path whose kernel is launched no time fails the run: at 64 frames
     # the decoder's local attention is outside the gate

@@ -1,10 +1,11 @@
-"""The port's two kernel modules against the JAX package, on the CPU.
+"""The port's kernel modules against the JAX package, on the CPU.
 
 The CUDA kernels themselves run only on the card (``chip_smoke.py`` holds
 them against these plain versions there).  Here each plain version is held
 against the Pallas kernel in interpret mode — on every row — and against the
-XLA twin; the gates are compared with the JAX gates; and the routing and the
-wrappers' refusals are checked.
+XLA twin; the gates of chunk-local attention and the synthesis head are
+compared with the JAX gates (full attention has none); and the routing and
+the wrappers' refusals are checked.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -17,13 +18,18 @@ from styletts_zs_tpu.kernels import dispatch as j_dispatch
 from styletts_zs_tpu.kernels import vocoder_kernels
 from styletts_zs_tpu.ops import attention as j_attn
 from styletts_zs_torch.kernels import build, dispatch
+from styletts_zs_torch.kernels import full_attention as fa
 from styletts_zs_torch.kernels import local_attention as la
 from styletts_zs_torch.kernels import synthesis_head as head
+from styletts_zs_torch.ops import attention as attn_ops
 
 # fp32: the same sums in another order.  bf16: conv/probabilities rounded
 # to bf16 at the same places, but a sum in another order can round one bf16
 # step apart before exp() and the overlap-add (the bound chip_smoke.py uses).
 TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 2e-2)}
+# full attention: the output is rounded to bf16 at the same place (one bf16
+# step is under 1e-2 + 1e-2 |x| at any |x|), as chip_smoke.py holds row 2
+FULL_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 1e-2)}
 
 
 @pytest.fixture(autouse=True)
@@ -89,6 +95,94 @@ def test_local_attention_gate_matches_jax(monkeypatch, T_, chunk):
     x = jnp.zeros((1, T_, 1, 8), jnp.float32)
     attention_kernel.local_attention_pallas(x, x, x, chunk=chunk)
     assert la.supported(T_, chunk) == bool(reached)
+
+
+# --- row 2: full attention with a per-key mask --------------------------------
+
+FB, FH, FD, TT, NP = 4, 2, 16, 40, 8      # keys: 40 text + 8 prompt
+
+
+def _full_inputs(Tq, dtype):
+    """q (4, Tq, 2, 16), k/v (4, 48, 2, 16); the denoiser's cross mask
+    [text | padding | prompt] with text lengths 40, 9 and 0, and a row with
+    no valid key at all."""
+    q = rnd(FB, Tq, FH, FD, seed=11)
+    k, v = (rnd(FB, TT + NP, FH, FD, seed=s) for s in (12, 13))
+    text = np.arange(TT)[None] < np.array([TT, 9, 0, 0])[:, None]
+    mask = np.concatenate([text, np.ones((FB, NP), bool)], axis=1)
+    mask[3] = False
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    jx = [jnp.asarray(a).astype(jdt) for a in (q, k, v)]
+    tx = [t(a).to(dtype) for a in (q, k, v)]
+    return jx, tx, mask
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Tq", [50, 128])
+def test_full_attention_plain_matches_pallas_on_all_rows(dtype, Tq):
+    jx, tx, mask = _full_inputs(Tq, dtype)
+    ref = attention_kernel.full_attention_pallas(*jx,
+                                                 kv_mask=jnp.asarray(mask))
+    out = fa.full_attention_plain(*tx, t(mask))
+    assert out.dtype == dtype and out.shape == (FB, Tq, FH, FD)
+    atol, rtol = FULL_TOL[dtype]
+    np.testing.assert_allclose(n(out), n(ref), atol=atol, rtol=rtol)
+    # the row with no valid key averages all 48 keys, as Pallas does
+    np.testing.assert_allclose(n(out)[3], np.broadcast_to(
+        n(tx[2])[3].mean(0), (Tq, FH, FD)), atol=atol, rtol=rtol)
+    # no mask: every key counts
+    ref = attention_kernel.full_attention_pallas(*jx)
+    np.testing.assert_allclose(n(fa.full_attention_plain(*tx)), n(ref),
+                               atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_full_attention_plain_matches_twin_on_rows_with_a_key(dtype):
+    jx, tx, mask = _full_inputs(50, dtype)
+    ref = n(j_attn.cross_attention(*jx, kv_mask=jnp.asarray(mask)))
+    out = n(fa.full_attention_plain(*tx, t(mask)))
+    has_key = mask.any(-1)
+    assert has_key.any() and not has_key.all()
+    atol, rtol = FULL_TOL[dtype]
+    np.testing.assert_allclose(out[has_key], ref[has_key], atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("Tq,Tk", [(50, 272), (256, 256), (240, 240),
+                                   (16, 240), (512, 64), (600, 64),
+                                   (640, 64), (64, 2048), (64, 2049)])
+def test_full_attention_has_no_shape_gate(Tq, Tk):
+    """Every shape, inside the Pallas kernel's gate or outside it (600 and
+    640 queries, 2049 keys), takes the kernel's plain version on the CPU
+    (the kernel on the card), and agrees with the XLA twin on rows with a
+    key."""
+    q = t(rnd(2, Tq, FH, FD, seed=15))
+    k, v = (t(rnd(2, Tk, FH, FD, seed=s)) for s in (16, 17))
+    mask = np.arange(Tk)[None] < np.array([Tk, 0])[:, None]
+    before = dispatch.plain_calls["full_attention"]
+    out = dispatch.full_attention(q, k, v, kv_mask=t(mask))
+    assert dispatch.plain_calls["full_attention"] == before + 1
+    assert torch.equal(out, fa.full_attention_plain(q, k, v, t(mask)))
+    np.testing.assert_allclose(
+        n(out)[0], n(attn_ops.cross_attention(q, k, v, kv_mask=t(mask)))[0],
+        atol=FULL_TOL[torch.float32][0], rtol=FULL_TOL[torch.float32][1])
+
+
+def test_full_attention_cpu_routing_and_cuda_refusal():
+    _, tx, mask = _full_inputs(50, torch.float32)
+    before = dict(dispatch.plain_calls)
+    launches = fa.launches
+    out = dispatch.full_attention(*tx, kv_mask=t(mask))
+    assert torch.equal(out, fa.full_attention_plain(*tx, t(mask)))
+    # 600 queries, outside the Pallas kernel's gate: the plain version too
+    q = t(rnd(FB, 600, FH, FD, seed=14))
+    assert torch.equal(dispatch.full_attention(q, *tx[1:], kv_mask=t(mask)),
+                       fa.full_attention_plain(q, *tx[1:], t(mask)))
+    assert dispatch.plain_calls["full_attention"] == \
+        before["full_attention"] + 2
+    assert fa.launches == launches
+    with pytest.raises(ValueError):
+        fa.full_attention_cuda(*tx, t(mask))
 
 
 # --- row 12: fused synthesis head --------------------------------------------
@@ -159,7 +253,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
 def test_build_lists_every_source_and_names_the_target():
     names = [p.name for p in build.sources()]
-    assert names == ["local_attention.cu", "synthesis_head.cu"]
+    assert names == ["full_attention.cu", "local_attention.cu", "sampler.cu",
+                     "synthesis_head.cu"]
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     for p in build.sources():
         src = p.read_text()
