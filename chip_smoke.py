@@ -7,12 +7,18 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 
 Phases, one line each with its seconds:
   1. device     — requires CUDA; prints the card's name and power limit;
-  2. build      — compiles ``styletts_zs_torch/csrc/*.cu`` with one nvcc
-                  call (``-Xptxas -v`` register/shared-memory lines printed);
+  2. build      — compiles ``styletts_zs_torch/csrc/*.cu``, one nvcc per
+                  source, all started together (``-Xptxas -v`` register and
+                  shared-memory lines printed);
   3. kernels    — each hand-written kernel against its plain PyTorch
                   version at the main paths' shapes, fp32 and bf16, masked
                   and unmasked, with kernel / plain / library times from
-                  CUDA events and the bound computed from the inputs;
+                  CUDA events and the bound computed from the inputs; the
+                  AdaIN conv pass and the transposed conv at the long-form
+                  and the 1-step batch-32 shapes, chunk-local attention
+                  also at 256 and 512 frames (the first through the
+                  full-attention kernel), and the cuDNN kernels that the
+                  library calls of the two convs launch;
   4. main path  — zero-shot 1-step synthesis with the vocoder at full width
                   (``bench.py``'s configuration: 256 phonemes, 1024 frames,
                   bf16, weights from a seed) at batch 1 and 32, checking the
@@ -25,7 +31,14 @@ Phases, one line each with its seconds:
                   the same model: time per call, audio-s/s, peak memory, the
                   launches per call of every kernel, and the fp32 card path
                   against the fp32 CPU plain path at batch 1;
-  7. profile    — the same breakdown for one multi-step batch-32 call.
+  7. profile    — the same breakdown for one multi-step batch-32 call;
+  8. long-form  — acceptance level 4 (``configs/longform_60s.toml``: batch
+                  4, 4864 frames = 60.8 s, 1-step, with the vocoder) and
+                  its 2048-frame bucket: time per call, audio-s/s, peak
+                  memory, the launches per call of every kernel, and the
+                  fp32 card path against the fp32 CPU plain path at batch 1;
+  9. profile    — the same breakdown for one long-form call.
+After every path on the card no plain version has seen a CUDA tensor.
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result; without a CUDA device it stops in
@@ -48,12 +61,15 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from styletts_zs_torch.config import (Config, ModelConfig,  # noqa: E402
                                       RuntimeConfig, load_config)
-from styletts_zs_torch.kernels import build, dispatch  # noqa: E402
+from styletts_zs_torch.kernels import adain_conv as ac_kernel  # noqa: E402
+from styletts_zs_torch.kernels import build, dispatch, plain  # noqa: E402
+from styletts_zs_torch.kernels import conv_transpose as ct_kernel  # noqa: E402
 from styletts_zs_torch.kernels import full_attention as fa_kernel  # noqa: E402
 from styletts_zs_torch.kernels import local_attention as la_kernel  # noqa: E402
 from styletts_zs_torch.kernels import sampler as sampler_kernel  # noqa: E402
 from styletts_zs_torch.kernels import synthesis_head as head_kernel  # noqa: E402
 from styletts_zs_torch.models.diffusion import karras_sigmas  # noqa: E402
+from styletts_zs_torch.ops import conv as conv_ops  # noqa: E402
 from styletts_zs_torch.ops.attention import length_mask  # noqa: E402
 from styletts_zs_torch.pipelines.factory import (build_models,  # noqa: E402
                                                  init_params)
@@ -75,6 +91,12 @@ SM_CYCLES_PER_S = 1.98e9       # the SM's highest clock: a hold of n cycles
 # overlap-add.
 # The sampler kernels round every operation as the plain version does
 # (1e-6 leaves room for a rare double rounding of its fp64 FMA).
+# The two convs: fp32 sums 2 560 (AdaIN conv, K 5 x C 512) or 1 024
+# (transposed conv, 2 taps x Cin 512) products in another order than cuBLAS
+# in the plain version, with |y| up to ~5; bf16 rounds the output once, as
+# the plain version does, so the two can land one bf16 step apart (the
+# staged activations are rounded at the same place, so a flip there moves
+# y by ~1e-4).
 TOL = {
     "local_attention": {torch.float32: (1e-5, 1e-5),
                         torch.bfloat16: (1e-2, 1e-2)},
@@ -84,6 +106,10 @@ TOL = {
                        torch.bfloat16: (1e-2, 1e-2)},
     "sampler_euler": {torch.float32: (1e-6, 1e-6)},
     "sampler_heun": {torch.float32: (1e-6, 1e-6)},
+    "adain_conv": {torch.float32: (1e-4, 1e-4),
+                   torch.bfloat16: (1e-2, 1e-2)},
+    "conv_transpose": {torch.float32: (1e-4, 1e-4),
+                       torch.bfloat16: (1e-2, 1e-2)},
 }
 # The untrained duration head predicts log-durations near 0, which round to
 # 0 frames: every utterance would be empty.  Its bias is set so that the
@@ -98,6 +124,9 @@ FP32_PATH_TOL = 1e-3
 STYLE_TOL = 1e-4
 # The second text of the multi-step parity check, of max_text_len 256.
 SHORT_TEXT = 200
+# Long-form: 256 phonemes fill 4864 frames at ~19 frames each, so the
+# duration head's bias is set for ~18 (the untrained head adds ~9 %).
+LONGFORM_DURATION_BIAS = float(np.log1p(17.0))
 SOURCES = {
     "local_attention": ("styletts_zs_torch/csrc/local_attention.cu",
                         "styletts_zs_tpu/kernels/attention_kernel.py:35"),
@@ -109,8 +138,13 @@ SOURCES = {
                       "styletts_zs_tpu/kernels/sampler_kernel.py:26"),
     "sampler_heun": ("styletts_zs_torch/csrc/sampler.cu",
                      "styletts_zs_tpu/kernels/sampler_kernel.py:41"),
+    "adain_conv": ("styletts_zs_torch/csrc/adain_conv.cu",
+                   "styletts_zs_tpu/kernels/decoder_kernels.py:43"),
+    "conv_transpose": ("styletts_zs_torch/csrc/conv_transpose.cu",
+                       "styletts_zs_tpu/kernels/vocoder_kernels.py:41"),
 }
 MULTISTEP_CONFIG = REPO / "configs" / "multistep_b32.toml"
+LONGFORM_CONFIG = REPO / "configs" / "longform_60s.toml"
 
 
 @contextmanager
@@ -212,7 +246,7 @@ def phase_device() -> str:
 def phase_build() -> build.KernelLibrary:
     lib = build.library()
     print(f"built {lib.path.name} in {lib.build_seconds:.1f} s "
-          f"(one nvcc call, {len(build.sources())} sources)")
+          f"({len(build.sources())} sources, one nvcc each, in parallel)")
     for line in lib.log.splitlines():
         if "ptxas info" in line and ("Used" in line or "Compiling" in line):
             print("  " + line.strip())
@@ -223,15 +257,17 @@ def phase_build() -> build.KernelLibrary:
 # phase 3: each kernel against its plain version at the main path's shapes
 # ---------------------------------------------------------------------------
 
-def _attention_inputs(dtype, masked: bool, g: torch.Generator):
-    """(B 32, T 1024, H 8, D 64) q/k/v as strided views of one fused qkv
+def _attention_inputs(dtype, masked: bool, g: torch.Generator,
+                      T: int = 1024):
+    """(B 32, T, H 8, D 64) q/k/v as strided views of one fused qkv
     projection, as the decoder hands them over."""
-    B, T, H, D = 32, 1024, 8, 64
+    B, H, D = 32, 8, 64
     qkv = torch.randn(B, T, 3 * H * D, generator=g, device="cuda").to(dtype)
     q, k, v = (t.reshape(B, T, H, D) for t in qkv.split(H * D, dim=-1))
     if masked:
         lengths = torch.randint(1, T + 1, (B,), generator=g, device="cuda")
-        lengths[:4] = torch.tensor([0, 1, 256, 700], device="cuda")
+        lengths[:4] = torch.tensor([0, 1, min(T, 256), min(T, 700)],
+                                   device="cuda")
     else:
         lengths = torch.full((B,), T, device="cuda")
     return q, k, v, lengths.to(torch.int32)
@@ -281,8 +317,60 @@ def check_local_attention(chunk: int = 256) -> dict:
     print(f"  local_attention bf16 B{B} T{T} H{H} D{D} c{chunk}: kernel "
           f"{ms:.3f} ms, plain {plain_ms:.3f} ms, sdpa {library_ms:.3f} ms, "
           f"bound {bms:.4f} ms ({by})")
-    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": library_ms}
+    res = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bms, "bound_by": by, "library_ms": library_ms}
+    short, err = _check_local_attention_short(chunk)
+    res["max_abs_err"] = max(res["max_abs_err"], err)
+    return {**res, **short}
+
+
+def _check_local_attention_short(chunk: int) -> tuple[dict, float]:
+    """Below three chunks, through ``dispatch.local_attention`` as the
+    decoder calls it: at T 2c the local kernel takes the whole sequence as
+    its window; at T c the call is one chunk and launches the full-attention
+    kernel (row 2).  Each against the local kernel's plain version, fp32
+    and bf16, masked and unmasked, batch 32; times at bf16, masked."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+    res, errs = {}, []
+    for T, kernel_name in ((2 * chunk, "local_attention"),
+                           (chunk, "full_attention")):
+        for dtype in (torch.float32, torch.bfloat16):
+            for masked in (False, True):
+                q, k, v, lengths = _attention_inputs(dtype, masked, g, T=T)
+                mask = length_mask(lengths, T) if masked else None
+                before = (la_kernel.launches, fa_kernel.launches)
+                out = dispatch.local_attention(q, k, v, chunk=chunk,
+                                               kv_mask=mask)
+                launched = (la_kernel.launches - before[0],
+                            fa_kernel.launches - before[1])
+                want = (1, 0) if kernel_name == "local_attention" else (0, 1)
+                if launched != want:
+                    raise AssertionError(f"local attention at T {T}: "
+                                         f"launched (local, full) {launched}, "
+                                         f"expected {want}")
+                ref = la_kernel.local_attention_plain(q, k, v, lengths,
+                                                      chunk=chunk)
+                torch.cuda.synchronize()
+                errs.append(check_close(
+                    "local_attention", f"T{T}{' masked' if masked else ''}",
+                    dtype, out, ref))
+        ms = cuda_ms(lambda: dispatch.local_attention(q, k, v, chunk=chunk,
+                                                      kv_mask=mask))
+        plain_ms = cuda_ms(lambda: la_kernel.local_attention_plain(
+            q, k, v, lengths, chunk=chunk), iters=3)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        library_ms = cuda_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask[:, None, None, :]), iters=5)
+        n_bytes, flops = _attention_work(lengths.cpu(), T, 8, 64, chunk, 2)
+        bms, by = bound_ms(n_bytes, flops, BF16_FLOP_PER_S)
+        print(f"  local_attention bf16 B32 T{T} c{chunk} through "
+              f"{kernel_name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"sdpa {library_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+        res[f"T{T}"] = {"kernel": kernel_name, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bms, "bound_by": by,
+                        "library_ms": library_ms}
+    return res, max(errs)
 
 
 def check_synthesis_head(n_fft: int = 48, hop: int = 12, K: int = 7) -> dict:
@@ -480,11 +568,197 @@ def _sampler_tail(name: str, s_cur, s_next, g) -> float:
                for o, r in zip(outs, refs))
 
 
+def device_kernels(fn) -> str:
+    """The device kernels one call of ``fn`` launches, with their times
+    (``torch.profiler``), as one line."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return "; ".join(f"{e.key[:70]} x{e.count} "
+                     f"{e.self_device_time_total / 1e3:.3f} ms"
+                     for e in sorted(evs, key=lambda e: -e.self_device_time_total))
+
+
+def _conv_time_label(ms, plain_ms, library_ms, bms, by, card) -> str:
+    return (f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+            f"{library_ms:.4f} ms, bound {bms:.4f} ms ({by})  [{card}]")
+
+
+def _adain_inputs(B: int, T: int, dtype, g, *, time_varying: bool):
+    """x (B, T, 512) and pass 1's scale/shift as the decoder hands them over:
+    strided views at channel offsets 0 and 2C of the style projection's
+    (B, T, 4C) output (or of a (B, 4C) global one); the statistics of x; a
+    K 5 weight (K, C, C)."""
+    C, K = 512, 5
+    x = torch.randn(B, T, C, generator=g, device="cuda").to(dtype)
+    mod_shape = (B, T, 4 * C) if time_varying else (B, 4 * C)
+    mod = (0.3 * torch.randn(*mod_shape, generator=g, device="cuda")).to(dtype)
+    scale, shift = mod.split(2 * C, dim=-1)
+    w = (torch.randn(K, C, C, generator=g, device="cuda")
+         * (K * C) ** -0.5).to(dtype)
+    return (x, scale[..., :C], shift[..., :C], *ac_kernel.instance_stats(x),
+            w)
+
+
+def _adain_library(x, sc, sh, mean, rstd, w, dilation):
+    """The same function as PyTorch ops and one cuDNN convolution: what the
+    port ran before the kernel."""
+    if sc.ndim == 2:
+        sc, sh = sc[:, None], sh[:, None]
+    h = torch.nn.functional.silu(
+        (x.float() - mean[:, None]) * rstd[:, None] * (1.0 + sc.float())
+        + sh.float()).to(x.dtype)
+    return conv_ops.conv1d(h, w, dilation=dilation)
+
+
+def _adain_work(x, sc, sh, w):
+    """Bytes (x, scale, shift, the statistics and w read once, y written
+    once) and the products' FLOPs of one pass."""
+    B, T, C = x.shape
+    K, _, C_out = w.shape
+    it = x.element_size()
+    n_bytes = ((x.numel() + sc[..., 0].numel() * C * 2 + w.numel()
+                + B * T * C_out) * it + 2 * B * C * 4)
+    return n_bytes, 2 * B * T * K * C * C_out
+
+
+def check_adain_conv(card: str) -> dict:
+    """The fused AdaIN conv pass (row 6) at the long-form shapes (B 4, T
+    4864) and the 1-step batch-32 ones (B 32, T 1024), C 512 -> 512, K 5:
+    fp32 and bf16, dilations 1, 3 and 9, time-varying and global style.
+    Times at bf16 with time-varying style, per dilation; the library time
+    is the PyTorch modulation plus cuDNN's dilated conv."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    res, errs = {}, []
+    for label, (B, T) in (("long_form", (4, 4864)), ("one_step_b32", (32, 1024))):
+        for dtype in (torch.float32, torch.bfloat16):
+            for tv in (True, False):
+                args = _adain_inputs(B, T, dtype, g, time_varying=tv)
+                for d in (1, 3, 9):
+                    out = ac_kernel.adain_conv_pass_cuda(*args, dilation=d)
+                    ref = ac_kernel.adain_conv_pass_plain(*args, dilation=d)
+                    torch.cuda.synchronize()
+                    errs.append(check_close(
+                        "adain_conv", f"{label} d{d}{'' if tv else ' global'}",
+                        dtype, out, ref))
+        args = _adain_inputs(B, T, torch.bfloat16, g, time_varying=True)
+        bms, by = bound_ms(*_adain_work(*args[:3], args[5]), BF16_FLOP_PER_S)
+        h = _adain_library(*args, 1)
+        for d in (1, 3, 9):
+            ms = cuda_ms(lambda: ac_kernel.adain_conv_pass_cuda(*args,
+                                                                dilation=d))
+            plain_ms = cuda_ms(lambda: ac_kernel.adain_conv_pass_plain(
+                *args, dilation=d), iters=3)
+            library_ms = cuda_ms(lambda: _adain_library(*args, d), iters=5)
+            conv_ms = cuda_ms(lambda: conv_ops.conv1d(h, args[5], dilation=d),
+                              iters=5)
+            print(f"  adain_conv bf16 {label} B{B} T{T} 512->512 K5 d{d}: "
+                  + _conv_time_label(ms, plain_ms, library_ms, bms, by, card)
+                  + f"; cuDNN conv alone {conv_ms:.4f} ms")
+            if label == "one_step_b32":
+                print(f"    cuDNN kernels of the library call: "
+                      f"{device_kernels(lambda: _adain_library(*args, d))}")
+            entry = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                     "bound_by": by, "library_ms": library_ms}
+            if label == "long_form" and d == 1:
+                res.update(entry)
+            else:
+                res[f"{label}_d{d}"] = entry
+    res["max_abs_err"] = max(errs)
+    return res
+
+
+def _convt_inputs(B, T, C_in, C_out, dtype, g):
+    """x (B, T, Cin) as a view of (B, Cin, T) memory, as the vocoder's
+    resblocks hand it over, and a K 10 weight (K, Cin, Cout)."""
+    x = torch.randn(B, C_in, T, generator=g, device="cuda").to(dtype)
+    w = (torch.randn(10, C_in, C_out, generator=g, device="cuda")
+         * (2 * C_in) ** -0.5).to(dtype)
+    return x.transpose(1, 2), w
+
+
+def _convt_library(x, w, stride):
+    """The same function as one leaky ReLU and cuDNN's transposed conv."""
+    return conv_ops.conv_transpose1d(torch.nn.functional.leaky_relu(x, 0.1),
+                                     w, stride=stride)
+
+
+def check_conv_transpose(card: str) -> dict:
+    """The transposed conv (row 10), K 10, stride 5, leaky ReLU fused, at
+    the vocoder's two stages for long-form (B 4: 4864 -> 24 320 frames,
+    512 -> 256 channels; 24 320 -> 121 600, 256 -> 128) and for the 1-step
+    batch 32 (1024 and 5120 frames), fp32 and bf16, x read in its (B, C,
+    T)-major layout; one bf16 case also from a contiguous (B, T, C) x
+    without the activation.  Times at bf16, with the cost of the copy that
+    reading the layout in place saves."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+    r = 5
+    cases = {"long_form_stage1": (4, 4864, 512, 256),
+             "long_form_stage2": (4, 24320, 256, 128),
+             "one_step_b32_stage1": (32, 1024, 512, 256),
+             "one_step_b32_stage2": (32, 5120, 256, 128)}
+    res, errs = {}, []
+    for label, (B, T, C_in, C_out) in cases.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w = _convt_inputs(B, T, C_in, C_out, dtype, g)
+            out = ct_kernel.conv_transpose1d_cuda(x, w, stride=r,
+                                                  negative_slope=0.1)
+            ref = ct_kernel.conv_transpose1d_plain(x, w, stride=r,
+                                                   negative_slope=0.1)
+            torch.cuda.synchronize()
+            if out.shape != (B, T * r, C_out):
+                raise AssertionError(f"conv_transpose {label}: shape "
+                                     f"{tuple(out.shape)}")
+            errs.append(check_close("conv_transpose", label, dtype, out, ref))
+            del out, ref
+        if label == "long_form_stage1":
+            xc = x.contiguous()
+            out = ct_kernel.conv_transpose1d_cuda(xc, w, stride=r)
+            ref = ct_kernel.conv_transpose1d_plain(xc, w, stride=r)
+            torch.cuda.synchronize()
+            errs.append(check_close("conv_transpose", "contiguous",
+                                    torch.bfloat16, out, ref))
+            del xc, out, ref
+        ms = cuda_ms(lambda: ct_kernel.conv_transpose1d_cuda(
+            x, w, stride=r, negative_slope=0.1))
+        plain_ms = cuda_ms(lambda: ct_kernel.conv_transpose1d_plain(
+            x, w, stride=r, negative_slope=0.1), iters=3)
+        library_ms = cuda_ms(lambda: _convt_library(x, w, r), iters=5)
+        copy_ms = cuda_ms(lambda: x.contiguous())
+        it = x.element_size()
+        n_bytes = (x.numel() + w.numel() + B * T * r * C_out) * it
+        bms, by = bound_ms(n_bytes, 2 * B * T * 10 * C_in * C_out,
+                           BF16_FLOP_PER_S)
+        print(f"  conv_transpose bf16 {label} ({B}, {T}, {C_in}) -> ({B}, "
+              f"{T * r}, {C_out}): "
+              + _conv_time_label(ms, plain_ms, library_ms, bms, by, card)
+              + f"; a contiguous copy of x would add {copy_ms:.4f} ms")
+        if label.startswith("one_step_b32"):
+            print(f"    cuDNN kernels of the library call: "
+                  f"{device_kernels(lambda: _convt_library(x, w, r))}")
+        entry = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                 "bound_by": by, "library_ms": library_ms,
+                 "copy_ms": copy_ms}
+        if label == "long_form_stage1":
+            res.update(entry)
+        else:
+            res[label] = entry
+    res["max_abs_err"] = max(errs)
+    return res
+
+
 def phase_kernel_checks(card: str) -> dict:
     return {"local_attention": check_local_attention(),
             "synthesis_head": check_synthesis_head(),
             "full_attention": check_full_attention(card),
-            **check_sampler(card)}
+            **check_sampler(card),
+            "adain_conv": check_adain_conv(card),
+            "conv_transpose": check_conv_transpose(card)}
 
 
 # ---------------------------------------------------------------------------
@@ -495,9 +769,12 @@ def reset_counts() -> None:
     la_kernel.launches = 0
     head_kernel.launches = 0
     fa_kernel.launches = 0
+    ac_kernel.launches = 0
+    ct_kernel.launches = 0
     for counts in (sampler_kernel.launches, dispatch.plain_calls):
         for name in counts:
             counts[name] = 0
+    plain.cuda_calls.clear()
 
 
 def kernel_counts(device: torch.device) -> dict:
@@ -506,8 +783,18 @@ def kernel_counts(device: torch.device) -> dict:
         return {"local_attention": la_kernel.launches,
                 "synthesis_head": head_kernel.launches,
                 "full_attention": fa_kernel.launches,
-                **sampler_kernel.launches}
+                **sampler_kernel.launches,
+                "adain_conv": ac_kernel.launches,
+                "conv_transpose": ct_kernel.launches}
     return dict(dispatch.plain_calls)
+
+
+def check_no_plain_on_card(label: str) -> None:
+    """Fail if a plain version saw a CUDA tensor since the counts were set
+    to 0: every op on the card must have launched its kernel."""
+    if plain.cuda_calls:
+        raise AssertionError(f"{label}: plain versions ran on the card "
+                             f"{plain.cuda_calls}")
 
 
 def sampler_calls(cfg: Config, one_step: bool, n_steps=None) -> tuple:
@@ -524,27 +811,29 @@ def sampler_calls(cfg: Config, one_step: bool, n_steps=None) -> tuple:
 def expected_counts(cfg: Config, n_frames: int, *, one_step: bool = True,
                     n_steps=None, with_vocoder: bool = True) -> dict:
     """Kernel calls one synthesis call makes: one local attention per
-    decoder attention block (inside its gate); a full attention per text,
-    prosody and prompt encoder block, the prompt pooling and, per denoiser
-    call, each block's self- and cross-attention (full attention has no
-    gate); the sampler's Euler steps and Heun corrections; one head with
-    the vocoder."""
+    decoder attention block, or a full attention where the frames fit in
+    one chunk; a full attention per text, prosody and prompt encoder block,
+    the prompt pooling and, per denoiser call, each block's self- and
+    cross-attention; two AdaIN conv passes per decoder block; the sampler's
+    Euler steps and Heun corrections; with the vocoder, a transposed conv
+    per upsampling stage and one head.  No kernel has a shape gate."""
     m = cfg.model
     d, v = m.decoder, m.vocoder
     n_attn = sum(1 for i in range(d.n_blocks) if (i + 1) % d.attn_every == 0)
     n_den, n_euler, n_heun = sampler_calls(cfg, one_step, n_steps)
-    expect = {"local_attention": n_attn if la_kernel.supported(
-                  n_frames, d.attn_window) else 0,
-              "full_attention": (m.text_encoder.n_attn_layers
+    expect = {"full_attention": (m.text_encoder.n_attn_layers
                                  + m.prosody_encoder.n_layers
                                  + m.prompt_encoder.n_layers + 1
-                                 + 2 * n_den * m.diffusion.n_layers)}
+                                 + 2 * n_den * m.diffusion.n_layers),
+              "adain_conv": 2 * d.n_blocks}
+    if n_frames > d.attn_window:
+        expect["local_attention"] = n_attn
+    else:
+        expect["full_attention"] += n_attn
     if not one_step:
         expect.update(sampler_euler=n_euler, sampler_heun=n_heun)
     if with_vocoder:
-        expect["synthesis_head"] = 1 if head_kernel.supported(
-            n_fft=v.istft_n_fft, hop=v.istft_hop, K=7,
-            dtype=getattr(torch, cfg.runtime.compute_dtype)) else 0
+        expect.update(synthesis_head=1, conv_transpose=len(v.upsample_rates))
     return expect
 
 
@@ -567,13 +856,14 @@ def synth_inputs(cfg: Config, batch: int, device, seed: int = 0):
 
 def drive_main_path(cfg: Config, fn, inputs, *, device, n_calls: int,
                     one_step: bool = True, n_steps=None,
-                    with_vocoder: bool = True) -> dict:
-    """Run ``fn`` ``n_calls`` times, each timed to its end, with the kernel
-    counts set to 0 just before and read just after; check the counts
-    (every kernel of the path launched as often as expected, no other),
-    shapes and finiteness."""
+                    with_vocoder: bool = True, n_frames=None) -> dict:
+    """Run ``fn`` (made for ``n_frames``, by default the config's
+    ``max_frames``) ``n_calls`` times, each timed to its end, with the
+    kernel counts set to 0 just before and read just after; check the
+    counts (every kernel of the path launched as often as expected, no
+    other, and on the card no plain version), shapes and finiteness."""
     device = torch.device(device)
-    n_frames = cfg.model.max_frames
+    n_frames = n_frames or cfg.model.max_frames
     expect = expected_counts(cfg, n_frames, one_step=one_step,
                              n_steps=n_steps, with_vocoder=with_vocoder)
     if device.type == "cuda":
@@ -587,6 +877,8 @@ def drive_main_path(cfg: Config, fn, inputs, *, device, n_calls: int,
             torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     counts = kernel_counts(device)
+    if device.type == "cuda":
+        check_no_plain_on_card(f"{n_frames}-frame path")
     wrong = [f"{name}: {n} calls in {n_calls} synthesis calls, expected "
              f"{expect.get(name, 0)} each" for name, n in counts.items()
              if (name in expect and expect[name] == 0)
@@ -661,6 +953,7 @@ def phase_main_path(card: str) -> dict:
     t_cpu = time.perf_counter() - t0
     out32, wav32 = make_synthesis_fn(cfg32, params, device="cuda")(
         *(x.cuda() for x in inputs1))
+    check_no_plain_on_card("1-step fp32 card path")
     if not torch.equal(out32.durations.cpu(), ref_out.durations):
         raise AssertionError("fp32 card durations differ from the CPU's")
     mel_err = (out32.mel.cpu() - ref_out.mel).abs().max().item()
@@ -768,6 +1061,7 @@ def phase_multistep(card: str) -> dict:
     out32, _ = make_synthesis_fn(cfg32, params, device="cuda", **kw)(*inputs1c)
     style32 = style_latent(cfg32, params, inputs1c, device="cuda",
                            n_steps=sv.n_steps, guidance=sv.guidance)
+    check_no_plain_on_card("multi-step fp32 card path")
     style_err = (style32.cpu() - ref_style).abs().max().item()
     same_dur = bool(torch.equal(out32.durations.cpu(), ref_out.durations))
     mel_err = (out32.mel.cpu() - ref_out.mel).abs().max().item()
@@ -790,17 +1084,100 @@ def phase_multistep(card: str) -> dict:
             "inputs": inputs}
 
 
-def phase_profile(fn, inputs, card: str, label: str) -> None:
-    """Device time by kernel for one call, and the busy share."""
+def longform_config() -> Config:
+    """Acceptance level 4 read by the port's own ``load_config`` (batch 4,
+    4864 frames, 1-step, with the vocoder, bf16) with ``bench.py``'s 256
+    phonemes in place of the default 512."""
+    cfg = load_config(str(LONGFORM_CONFIG))
+    sv, m = cfg.serve, cfg.model
+    if not (sv.one_step and sv.with_vocoder) or m.max_frames != 4864 or \
+            sv.batch_size != 4 or cfg.runtime.compute_dtype != "bfloat16":
+        raise AssertionError(f"{LONGFORM_CONFIG.name}: expected level 4, got "
+                             f"{sv}, max_frames {m.max_frames}")
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        m, max_text_len=bench_config().model.max_text_len))
+
+
+def phase_longform(card: str) -> dict:
+    cfg = longform_config()
+    m, sv = cfg.model, cfg.serve
+    params = init_params(cfg, seed=0, device="cpu")
+    params["acoustic"]["duration_predictor.out.bias"].fill_(
+        LONGFORM_DURATION_BIAS)
+    n_up = int(np.prod(m.vocoder.upsample_rates))
+    res = {}
+    for frames in (m.max_frames, 2048):
+        fn = make_synthesis_fn(cfg, params, n_frames=frames, device="cuda")
+        inputs = synth_inputs(cfg, sv.batch_size, "cuda")
+        fn(*inputs)                                   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        n_calls = 5
+        r = drive_main_path(cfg, fn, inputs, device="cuda", n_calls=n_calls,
+                            n_frames=frames)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        audio_s = (sv.batch_size * (frames * n_up - 1) * m.vocoder.istft_hop
+                   / m.audio.sample_rate)
+        ms = [t * 1e3 for t in r["times"]]
+        lens = r["out"].frame_lengths
+        print(f"  batch {sv.batch_size} x {frames} frames: "
+              f"{r['seconds'] * 1e3:.1f} ms/call (median of {n_calls}, min "
+              f"{min(ms):.1f}, max {max(ms):.1f}), frames "
+              f"{int(lens.min())}..{int(lens.max())} of {frames}, waveform "
+              f"{tuple(r['wav'].shape)} finite, audio-s/s "
+              f"{audio_s / r['seconds']:.1f} ({audio_s:.1f} audio-s per "
+              f"call), peak memory {peak_gb:.2f} GB  [{card}]")
+        print(f"  kernel launches per call: "
+              f"{ {k: n / n_calls for k, n in r['counts'].items()} } "
+              f"(expected {r['per_call']})")
+        res[frames] = {**r, "fn": fn, "inputs": inputs, "n_calls": n_calls}
+    # fp32 on the card (the kernels) against fp32 on the CPU (the plain
+    # versions), the same weights and inputs, batch 1 at 4864 frames
+    cfg32 = dataclasses.replace(cfg, runtime=RuntimeConfig(
+        compute_dtype="float32"))
+    inputs1 = synth_inputs(cfg, 1, "cpu")
+    t0 = time.perf_counter()
+    ref_out, ref_wav = make_synthesis_fn(cfg32, params, device="cpu")(*inputs1)
+    t_cpu = time.perf_counter() - t0
+    out32, wav32 = make_synthesis_fn(cfg32, params, device="cuda")(
+        *(x.cuda() for x in inputs1))
+    check_no_plain_on_card("long-form fp32 card path")
+    same_dur = bool(torch.equal(out32.durations.cpu(), ref_out.durations))
+    mel_err = (out32.mel.cpu() - ref_out.mel).abs().max().item()
+    wav_err = (wav32.cpu() - ref_wav).abs().max().item()
+    print(f"  fp32 card vs fp32 CPU plain path, batch 1 x {m.max_frames} "
+          f"frames ({int(ref_out.frame_lengths[0])} filled): durations equal: "
+          f"{same_dur}, mel max_abs_err {mel_err:.2e} (tol "
+          f"{FP32_PATH_TOL:.0e}), waveform max_abs_err {wav_err:.2e} "
+          f"(max |wav| {ref_wav.abs().max().item():.3f}; CPU run "
+          f"{t_cpu:.1f} s)")
+    if not same_dur:
+        raise AssertionError("fp32 long-form card durations differ from the "
+                             "CPU's")
+    if not mel_err <= FP32_PATH_TOL:
+        raise AssertionError(f"fp32 long-form card path vs CPU: mel {mel_err}")
+    return res
+
+
+def _profiled_call(fn, inputs, *, record_shapes: bool):
+    """One call of ``fn`` under ``torch.profiler``: (profile, wall us)."""
     from torch.profiler import ProfilerActivity, profile
-    fn(*inputs)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=record_shapes) as prof:
         t0 = time.perf_counter()
         fn(*inputs)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    return prof, wall_us
+
+
+def phase_profile(fn, inputs, card: str, label: str) -> None:
+    """Device time by kernel for one call and the busy share; then, from a
+    second call whose input shapes are recorded (which slows the host, so
+    its busy share is not used), the ops that launched the top kernels."""
+    fn(*inputs)
+    torch.cuda.synchronize()
+    prof, wall_us = _profiled_call(fn, inputs, record_shapes=False)
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
@@ -810,10 +1187,20 @@ def phase_profile(fn, inputs, card: str, label: str) -> None:
     print(f"  {label}, one call: wall {wall_us / 1e3:.1f} ms, device busy "
           f"{busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.0f}%), "
           f"{sum(e.count for e in kernels)} kernel launches  [{card}]")
+    shaped, _ = _profiled_call(fn, inputs, record_shapes=True)
+    launched_by: dict[str, dict] = {}
+    for ev in shaped.events():
+        for kern in getattr(ev, "kernels", []):
+            src = f"{ev.name} {ev.input_shapes}"[:110]
+            srcs = launched_by.setdefault(kern.name, {})
+            srcs[src] = srcs.get(src, 0) + 1
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"    {e.self_device_time_total / 1e3:8.2f} ms "
               f"{100 * e.self_device_time_total / busy_us:5.1f}% "
               f"x{e.count:<5d} {e.key[:90]}")
+        srcs = sorted(launched_by.get(e.key, {}).items(), key=lambda kv: -kv[1])
+        for src, n_launch in srcs[:3]:
+            print(f"             x{n_launch:<4d} from {src}")
 
 
 def main() -> None:
@@ -833,16 +1220,24 @@ def main() -> None:
     with phase("profile multi-step"):
         phase_profile(multi["fn"], multi["inputs"], card,
                       "multi-step batch 32")
+    with phase("long-form"):
+        longf = phase_longform(card)
+    with phase("profile long-form"):
+        lf = longf[4864]
+        phase_profile(lf["fn"], lf["inputs"], card, "long-form batch 4 x 4864")
+    paths = {"one_step": (main_res["counts"], main_res["n_calls"]),
+             "multi_step": (multi["counts"], multi["n_calls"]),
+             "long_form": (lf["counts"], lf["n_calls"]),
+             "long_form_2048": (longf[2048]["counts"], longf[2048]["n_calls"])}
     kernels = []
     for name, c in checks.items():
         src, replaces = SOURCES[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
-            "launches": main_res["counts"][name] + multi["counts"][name],
-            "launches_per_call": {
-                "one_step": main_res["counts"][name] / main_res["n_calls"],
-                "multi_step": multi["counts"][name] / multi["n_calls"]},
+            "launches": sum(counts[name] for counts, _ in paths.values()),
+            "launches_per_call": {path: counts[name] / n for path, (counts, n)
+                                  in paths.items()},
             **c})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,12 @@
 // (the pallas_call in _local_attention_impl, wrapper local_attention_pallas).
 //
 // What it computes: for the queries of chunk i (chunk c), attention over the
-// keys of the clipped window [s0, s0 + 3c), s0 = clip((i-1)c, 0, T-3c); a key
-// counts when it lies in the band [(i-1)c, (i+2)c) and below lengths[b].
+// keys of the clipped window [s0, s0 + W), W = min(3c, T),
+// s0 = clip((i-1)c, 0, T-W); a key counts when it lies in the band
+// [(i-1)c, (i+2)c) and below lengths[b].  T is a multiple of c and at least
+// 2c: at T = 2c the window is the whole sequence, as the band is (the
+// Pallas kernel stops at 3c; T <= c is full attention, which the wrapper
+// sends to csrc/full_attention.cu).
 // Masked logits are -1e30 (not -inf), so a query with no valid key averages
 // the whole clipped window uniformly, as the Pallas kernel does.  Softmax in
 // fp32; inputs fp32 or bf16, (B, T, H, D) with any strides on B, T and H and
@@ -17,9 +21,9 @@
 // products, so a tensor-core kernel would be bound by operations (~52 us at
 // 989 TFLOP/s) and a CUDA-core kernel by the FMA and shared-memory rate.
 //
-// Design: one block per (query tile of 64, head, batch); the 3c-key window
-// is walked in tiles of 64 keys with an online (flash-style) softmax, so no
-// (T, 3c) score matrix reaches device memory.  Two variants, chosen by
+// Design: one block per (query tile of 64, head, batch); the window of W
+// keys is walked in tiles of 64 keys with an online (flash-style) softmax,
+// so no (T, W) score matrix reaches device memory.  Two variants, chosen by
 // dtype and alignment:
 //  - bf16 with 16-byte-aligned rows (the main path): QK^T and PV run on the
 //    tensor cores as 16x16x16 warp MMAs with fp32 accumulation; four warps
@@ -75,8 +79,9 @@ local_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ty = tid / 16;
 
   const int ci = q0 / chunk;                       // chunk of this query tile
+  const int win = min(3 * chunk, T_total);         // keys in the window
   int s0 = (ci - 1) * chunk;
-  s0 = max(0, min(s0, T_total - 3 * chunk));
+  s0 = max(0, min(s0, T_total - win));
   const int band_lo = (ci - 1) * chunk;
   const int band_hi = (ci + 2) * chunk;
   const int len = lengths[b];
@@ -99,7 +104,7 @@ local_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < 4; ++j) acc[a][j] = 0.f;
   }
 
-  const int n_tiles = 3 * chunk / kBK;
+  const int n_tiles = win / kBK;
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int kbase = s0 + kt * kBK;
     __syncthreads();  // previous tile's Ks/Vs/Ps fully consumed
@@ -222,8 +227,9 @@ local_attn_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int half = lane % 2;                // and its 32 keys / 32 dims
 
   const int ci = q0 / chunk;
+  const int win = min(3 * chunk, T_total);
   int s0 = (ci - 1) * chunk;
-  s0 = max(0, min(s0, T_total - 3 * chunk));
+  s0 = max(0, min(s0, T_total - win));
   const int band_lo = (ci - 1) * chunk;
   const int band_hi = (ci + 2) * chunk;
   const int len = lengths[b];
@@ -244,7 +250,7 @@ local_attn_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int d = 0; d < 32; ++d) o[d] = 0.f;
 
-  const int n_tiles = 3 * chunk / kBK;
+  const int n_tiles = win / kBK;
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int kbase = s0 + kt * kBK;
     __syncthreads();  // every warp is done with the previous Ks/Vs
@@ -406,7 +412,7 @@ extern "C" int local_attention_fwd(int dtype, const void* q, const void* k,
                                    long long k_st, long long k_sh,
                                    long long v_sb, long long v_st,
                                    long long v_sh, float scale, void* stream) {
-  if (D != kD || chunk % kBQ != 0 || T % chunk != 0 || T < 3 * chunk)
+  if (D != kD || chunk % kBQ != 0 || T % chunk != 0 || T < 2 * chunk)
     return (int)cudaErrorInvalidValue;
   const long long qs[3] = {q_sb, q_st, q_sh};
   const long long ks[3] = {k_sb, k_st, k_sh};

@@ -1,8 +1,9 @@
 """Build and bind the hand-written CUDA kernels of ``csrc/``.
 
-Every ``csrc/*.cu`` file is compiled by ONE ``nvcc`` call into one shared
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all
+started together, and the objects are linked by one more into one shared
 library with a plain C interface, which ``ctypes`` loads.  No PyTorch
-headers are compiled, so the build takes seconds.  The library goes to
+headers are compiled, so the build takes as long as the slowest source.  The library goes to
 ``build/`` at the repository root (listed in ``.gitignore``), named by a
 hash of the sources and flags, so an unchanged tree loads the library it
 already built.  Nothing here runs at import time: the first kernel launch
@@ -23,7 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,6 +51,14 @@ _SIGNATURES = {
     # x, x_euler, den2_cond, den2_uncond, d_cur, x_out, n,
     # (s_next - s_cur) / 2, max(s_next, 1e-8), guidance, stream
     "sampler_heun_fwd": [_P, _P, _P, _P, _P, _P, _L, _F, _F, _F, _P],
+    # dtype, x, scale, shift, mean, rstd, w, out, B, T, C, C_out, K,
+    # dilation, (b, t) strides of x, scale and shift, stream
+    "adain_conv_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                       _I, _L, _L, _L, _L, _L, _L, _P],
+    # dtype, x, w, out, B, T, C_in, C_out, K, stride, x strides (b, t, c),
+    # leaky, slope, stream
+    "conv_transpose_fwd": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L,
+                           _L, _I, _F, _P],
 }
 
 
@@ -92,15 +101,28 @@ def library() -> KernelLibrary:
     path = BUILD_DIR / f"libstyletts_zs_kernels-{_digest(srcs)}.so"
     seconds, log = 0.0, "loaded an existing build"
     if not path.exists():
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
+        tag = f"{path.stem}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in srcs]
+        procs = [subprocess.Popen([nvcc(), *NVCC_FLAGS, "-c", str(src), "-o",
+                                   str(obj)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(srcs, objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        log = "".join(logs)
+        if any(proc.returncode for proc in procs):
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run([nvcc(), "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        log += proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+            raise RuntimeError(f"nvcc link failed:\n{log}")
         os.replace(tmp, path)
+        for obj in objs:
+            obj.unlink()
+        seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from styletts_zs_torch.kernels import build
+from styletts_zs_torch.kernels import build, plain
 from styletts_zs_torch.ops.attention import NEG_INF
 
 launches = 0   # CUDA kernel launches; ``full_attention_cuda`` adds one each
@@ -27,6 +27,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 def full_attention_plain(q, k, v, mask=None) -> torch.Tensor:
     """Plain PyTorch version of the kernel (the Pallas kernel's steps)."""
+    plain.note("full_attention", q)
     D = q.shape[-1]
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * D ** -0.5
     if mask is not None:

@@ -3,18 +3,22 @@
 Port of ``styletts_zs_tpu/kernels/attention_kernel.py::_local_attn_kernel``
 (``local_attention_pallas``).  The kernel is ``csrc/local_attention.cu``.
 Both functions here take (B, T, H, D) q/k/v and (B,) int32 key lengths and
-compute the Pallas kernel's function: queries of chunk i attend to the keys
-of the clipped window [s0, s0 + 3c), s0 = clip((i-1)c, 0, T-3c), that lie in
-the band [(i-1)c, (i+2)c) and below the length.  A query with no valid key
-averages its clipped window uniformly (the Pallas kernel's behaviour; the
-XLA twin in ``ops.attention`` averages zero-padded neighbours instead — the
-decoder zeroes such rows, so valid rows never depend on it).
+compute the Pallas kernel's function, at every T the XLA twin takes: the
+queries of chunk i attend to the keys of the clipped window
+[s0, s0 + W), W = min(3c, T), s0 = clip((i-1)c, 0, T-W), that lie in the
+band [(i-1)c, (i+2)c) and below the length.  T > c must be a multiple of
+c; T <= c is one chunk, full attention over the length (the twin's ``mha``
+branch), which ``dispatch.local_attention`` sends to the full-attention
+kernel on the card.  A query with no valid key averages its clipped window
+uniformly (the Pallas kernel's behaviour; the XLA twin in
+``ops.attention`` averages zero-padded neighbours instead — the decoder
+zeroes such rows, so valid rows never depend on it).
 """
 from __future__ import annotations
 
 import torch
 
-from styletts_zs_torch.kernels import build
+from styletts_zs_torch.kernels import build, plain
 from styletts_zs_torch.ops.attention import NEG_INF
 
 launches = 0   # CUDA kernel launches; ``local_attention_cuda`` adds one each
@@ -22,21 +26,21 @@ launches = 0   # CUDA kernel launches; ``local_attention_cuda`` adds one each
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def supported(T: int, chunk: int) -> bool:
-    """The JAX package's shape gate (``attention_kernel.py:104``)."""
-    return T % chunk == 0 and T >= 3 * chunk and chunk % 8 == 0
-
-
 def local_attention_plain(q, k, v, lengths, *, chunk: int) -> torch.Tensor:
     """Plain PyTorch version of the kernel (same function, fp32 softmax)."""
+    plain.note("local_attention", q)
     B, T, H, D = q.shape
+    if T > chunk and T % chunk:        # the XLA twin raises there too
+        raise ValueError(f"T={T} not a multiple of chunk={chunk}")
+    W = min(3 * chunk, T)              # keys in a chunk's window
+    chunk = min(chunk, T)              # T <= c: one chunk of T queries
     n = T // chunk
     ci = torch.arange(n, device=q.device)
-    s0 = torch.clamp((ci - 1) * chunk, 0, T - 3 * chunk)
-    key = s0[:, None] + torch.arange(3 * chunk, device=q.device)   # (n, 3c)
+    s0 = torch.clamp((ci - 1) * chunk, 0, T - W)
+    key = s0[:, None] + torch.arange(W, device=q.device)           # (n, W)
     band = (key >= ((ci - 1) * chunk)[:, None]) & (key < ((ci + 2) * chunk)[:, None])
-    valid = band[None] & (key[None] < lengths[:, None, None])       # (B, n, 3c)
-    kw = k[:, key].float()                                          # (B, n, 3c, H, D)
+    valid = band[None] & (key[None] < lengths[:, None, None])       # (B, n, W)
+    kw = k[:, key].float()                                          # (B, n, W, H, D)
     vw = v[:, key]
     logits = torch.einsum("bnqhd,bnkhd->bnhqk",
                           q.reshape(B, n, chunk, H, D).float(), kw) * D ** -0.5
@@ -52,7 +56,8 @@ def local_attention_cuda(q, k, v, lengths, *, chunk: int) -> torch.Tensor:
 
     q/k/v: (B, T, H, D) CUDA tensors of one dtype (fp32 or bf16), last
     dimension contiguous, any strides elsewhere; lengths (B,) int32.  The
-    kernel takes D = 64 and chunk % 64 == 0 and raises on anything else.
+    kernel takes D = 64, chunk % 64 == 0 and T >= 2c (a multiple of c), and
+    raises on anything else.
     """
     global launches
     B, T, H, D = q.shape
@@ -64,9 +69,10 @@ def local_attention_cuda(q, k, v, lengths, *, chunk: int) -> torch.Tensor:
             raise ValueError(f"{name}: last dimension must be contiguous")
     if q.dtype not in _DTYPES:
         raise ValueError(f"dtype {q.dtype} not supported")
-    if D != 64 or chunk % 64 != 0 or not supported(T, chunk):
-        raise ValueError(f"kernel takes D=64, chunk%64==0 inside the gate; "
-                         f"got D={D} chunk={chunk} T={T}")
+    if D != 64 or chunk % 64 != 0 or T < 2 * chunk or T % chunk:
+        raise ValueError(f"kernel takes D=64, chunk%64==0, T a multiple of "
+                         f"chunk and >= 2 chunks; got D={D} chunk={chunk} "
+                         f"T={T}")
     if lengths.shape != (B,) or lengths.dtype != torch.int32 or \
             lengths.device != q.device:
         raise ValueError("lengths must be (B,) int32 on q's device")

@@ -25,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from styletts_zs_torch.kernels import build
+from styletts_zs_torch.kernels import build, plain
 
 # CUDA kernel launches; the ``*_cuda`` wrappers add one each
 launches = {"sampler_euler": 0, "sampler_heun": 0}
@@ -68,6 +68,7 @@ def _div(a: torch.Tensor, b) -> torch.Tensor:
 def euler_step_plain(x, den_cond, den_uncond, s_cur, s_next, *,
                      guidance: float):
     """Plain PyTorch version of the Euler kernel: (x_euler, d), both fp32."""
+    plain.note("sampler_euler", x)
     s_cur, _, ds, _ = _sigmas(s_cur, s_next)
     x, dc, du = x.float(), den_cond.float(), den_uncond.float()
     den = _fma(np.float32(guidance), dc - du, du)
@@ -78,6 +79,7 @@ def euler_step_plain(x, den_cond, den_uncond, s_cur, s_next, *,
 def heun_correction_plain(x, x_euler, den2_cond, den2_uncond, d_cur, s_cur,
                           s_next, *, guidance: float):
     """Plain PyTorch version of the Heun kernel: x_next, fp32."""
+    plain.note("sampler_heun", x)
     _, _, ds, s_div = _sigmas(s_cur, s_next)
     dc, du = den2_cond.float(), den2_uncond.float()
     den2 = _fma(np.float32(guidance), dc - du, du)

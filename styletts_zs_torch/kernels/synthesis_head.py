@@ -15,7 +15,7 @@ import functools
 import torch
 
 from styletts_zs_torch.config import AudioConfig
-from styletts_zs_torch.kernels import build
+from styletts_zs_torch.kernels import build, plain
 from styletts_zs_torch.ops import conv as conv_ops
 from styletts_zs_torch.ops import stft as stft_ops
 
@@ -39,6 +39,7 @@ def supported(*, n_fft: int, hop: int, K: int, dtype=None) -> bool:
 def synthesis_head_plain(x, w, b, *, n_fft: int, hop: int) -> torch.Tensor:
     """Plain PyTorch version: the op composition of the JAX twin
     (``dispatch._synthesis_head_xla``)."""
+    plain.note("synthesis_head", x)
     n_freq = n_fft // 2 + 1
     h = torch.where(x >= 0, x, x * torch.tensor(0.1, dtype=x.dtype))
     head = conv_ops.conv1d(h, w.to(x.dtype)) + b.to(x.dtype)

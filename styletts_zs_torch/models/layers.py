@@ -181,9 +181,13 @@ class ConvBlock(nn.Module):
 
 
 class AdaINResBlock(nn.Module):
-    """Style-conditioned residual conv block of the mel decoder.
+    """Style-conditioned residual conv block of the mel decoder: two fused
+    AdaIN -> SiLU -> conv passes (the hand-written kernel on the card).
 
-    ``conv1``/``conv2`` keep the JAX raw-parameter layout (K, C, C).
+    ``conv1``/``conv2`` keep the JAX raw-parameter layout (K, C, C).  The
+    style projection's (B, T, 4C) output reaches the kernel as strided
+    views (scale and shift of each pass at channel offsets 0, 2C, C, 3C),
+    not copies.
     """
 
     def __init__(self, dim: int, style_dim: int, kernel: int = 5,

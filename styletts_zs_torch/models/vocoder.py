@@ -1,10 +1,12 @@
 """Vocoder: transposed-conv upsampling + MRF resblocks + fused synthesis head.
 
 Counterpart of ``styletts_zs_tpu/models/vocoder.py``.  Mel frames are
-upsampled by prod(upsample_rates) with transposed convs, each followed by
-the average of parallel dilated resblocks; the head (leaky ReLU, K=7 conv,
-magnitude/phase epilogue, iSTFT overlap-add) is one call of
-``dispatch.synthesis_head`` — the hand-written head kernel on the card.
+upsampled by prod(upsample_rates) with transposed convs (leaky ReLU and
+transposed conv in one call of ``dispatch.conv_transpose1d``, the
+hand-written kernel on the card), each followed by the average of parallel
+dilated resblocks; the head (leaky ReLU, K=7 conv, magnitude/phase
+epilogue, iSTFT overlap-add) is one call of ``dispatch.synthesis_head`` —
+the hand-written head kernel on the card.
 ``up{i}_kernel`` and ``istft_head.{kernel,bias}`` keep the JAX layouts.
 """
 from __future__ import annotations
@@ -67,9 +69,10 @@ class Vocoder(nn.Module):
         if mask is not None:
             x = x * mask[..., None].to(x.dtype)
         for i, rate in enumerate(c.upsample_rates):
-            x = dispatch.conv_transpose1d(F.leaky_relu(x, 0.1),
-                                          getattr(self, f"up{i}_kernel"),
-                                          stride=rate)
+            # the leaky ReLU runs inside the kernel's load, which reads the
+            # resblocks' (B, C, T)-major output in place
+            x = dispatch.conv_transpose1d(x, getattr(self, f"up{i}_kernel"),
+                                          stride=rate, negative_slope=0.1)
             acc = None
             for j in range(len(c.resblock_kernels)):
                 h = getattr(self, f"mrf{i}_{j}")(x)

@@ -10,7 +10,6 @@ Durations must be equal; mel and waveform within atol 1e-4 (fp32 sums in
 another order through ~20 layers).  Also the CPU rehearsal of
 ``chip_smoke.py``'s main-path function.
 """
-import dataclasses
 import importlib.util
 from pathlib import Path
 
@@ -195,17 +194,26 @@ def test_chip_smoke_main_path_rehearsal_on_cpu():
                            device="cpu", n_calls=2)
     # full attention: 1 text + 1 prosody + 1 prompt encoder block (720
     # frames: no gate), the prompt pooling and 2 denoiser blocks' self- and
-    # cross-attention
+    # cross-attention; 2 decoder blocks of 2 AdaIN conv passes; 2 vocoder
+    # upsampling stages
     assert r["per_call"] == {"local_attention": 1, "synthesis_head": 1,
-                             "full_attention": 8}
+                             "full_attention": 8, "adain_conv": 4,
+                             "conv_transpose": 2}
     assert r["counts"] == {"local_attention": 2, "synthesis_head": 2,
                            "full_attention": 16, "sampler_euler": 0,
-                           "sampler_heun": 0}
+                           "sampler_heun": 0, "adain_conv": 8,
+                           "conv_transpose": 4}
     assert int(r["out"].frame_lengths.min()) > 0
-    # a path whose kernel is launched no time fails the run: at 64 frames
-    # the decoder's local attention is outside the gate
-    bad = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
-                                                             max_frames=64))
+    # a count off its expectation fails the run: a 32-frame path is one
+    # chunk, where the decoder's attention is full attention, but the
+    # program was made for 128 frames and launches local attention
     with pytest.raises(AssertionError, match="local_attention"):
-        cs.drive_main_path(bad, fn, cs.synth_inputs(cfg, 2, "cpu"),
-                           device="cpu", n_calls=1)
+        cs.drive_main_path(cfg, fn, cs.synth_inputs(cfg, 2, "cpu"),
+                           device="cpu", n_calls=1, n_frames=32)
+    # at 32 frames the program runs the decoder's attention as full
+    # attention, and that passes
+    short = make_synthesis_fn(cfg, params, device="cpu", n_frames=32)
+    r = cs.drive_main_path(cfg, short, cs.synth_inputs(cfg, 2, "cpu"),
+                           device="cpu", n_calls=1, n_frames=32)
+    assert r["per_call"]["full_attention"] == 9 and \
+        "local_attention" not in r["per_call"]

@@ -3,9 +3,9 @@
 The CUDA kernels themselves run only on the card (``chip_smoke.py`` holds
 them against these plain versions there).  Here each plain version is held
 against the Pallas kernel in interpret mode — on every row — and against the
-XLA twin; the gates of chunk-local attention and the synthesis head are
-compared with the JAX gates (full attention has none); and the routing and
-the wrappers' refusals are checked.
+XLA twin; chunk-local attention takes every length the JAX twin takes
+(JAX's Pallas gate included), the synthesis head's gate is compared with
+JAX's; and the routing and the wrappers' refusals are checked.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -17,7 +17,9 @@ from styletts_zs_tpu.kernels import attention_kernel
 from styletts_zs_tpu.kernels import dispatch as j_dispatch
 from styletts_zs_tpu.kernels import vocoder_kernels
 from styletts_zs_tpu.ops import attention as j_attn
-from styletts_zs_torch.kernels import build, dispatch
+from styletts_zs_torch.kernels import adain_conv as ac
+from styletts_zs_torch.kernels import build, dispatch, plain
+from styletts_zs_torch.kernels import conv_transpose as ct
 from styletts_zs_torch.kernels import full_attention as fa
 from styletts_zs_torch.kernels import local_attention as la
 from styletts_zs_torch.kernels import synthesis_head as head
@@ -83,8 +85,11 @@ def test_local_attention_plain_matches_twin_on_rows_with_a_key(masked):
                                       (512, 256), (100, 25), (120, 12),
                                       (64, 32), (48, 16)])
 def test_local_attention_gate_matches_jax(monkeypatch, T_, chunk):
-    """The JAX gate is the test in ``local_attention_pallas``: record
-    whether it reaches the Pallas call."""
+    """JAX's gate is the test in ``local_attention_pallas`` (recorded by
+    whether it reaches the Pallas call); the port has no such gate: every
+    one of these lengths, inside JAX's gate or not (512 and 64 are two
+    chunks, 100 and 120 chunks that are no multiple of 8), takes the
+    local-attention kernel's route, its plain version here."""
     reached = []
 
     def impl(q, k, v, lengths, *, chunk):
@@ -94,7 +99,55 @@ def test_local_attention_gate_matches_jax(monkeypatch, T_, chunk):
     monkeypatch.setattr(attention_kernel, "_local_attention_impl", impl)
     x = jnp.zeros((1, T_, 1, 8), jnp.float32)
     attention_kernel.local_attention_pallas(x, x, x, chunk=chunk)
-    assert la.supported(T_, chunk) == bool(reached)
+    assert bool(reached) == (T_ >= 3 * chunk and chunk % 8 == 0)
+    q = torch.zeros(1, T_, 1, 8)
+    before = dict(dispatch.plain_calls)
+    dispatch.local_attention(q, q, q, chunk=chunk)
+    assert dispatch.plain_calls["local_attention"] == \
+        before["local_attention"] + 1
+    assert dispatch.plain_calls["full_attention"] == before["full_attention"]
+
+
+@pytest.mark.parametrize("T_", [CHUNK // 2, CHUNK, 2 * CHUNK])
+@pytest.mark.parametrize("masked", [False, True])
+def test_local_attention_below_three_chunks_matches_twin(T_, masked):
+    """T = c/2 and c (one chunk: full attention over the length, through
+    the full-attention op) and 2c (the window is the whole sequence):
+    the plain version and the dispatcher's route agree with the XLA twin on
+    every row with a valid key, and with each other on all rows."""
+    q, k, v = (rnd(B, T_, H, D, seed=s) for s in (21, 22, 23))
+    lengths = np.array([T_, T_ // 2 + 1, 0] if masked else [T_] * B, np.int32)
+    mask = np.arange(T_)[None] < lengths[:, None]
+    ref = n(j_attn.local_attention(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), chunk=CHUNK,
+                                   kv_mask=jnp.asarray(mask)))
+    out = n(la.local_attention_plain(t(q), t(k), t(v), t(lengths),
+                                     chunk=CHUNK))
+    has_key = np.broadcast_to((lengths > 0)[:, None], (B, T_))
+    np.testing.assert_allclose(out[has_key], ref[has_key], atol=1e-5,
+                               rtol=1e-5)
+    before = dict(dispatch.plain_calls)
+    routed = n(dispatch.local_attention(t(q), t(k), t(v), chunk=CHUNK,
+                                        kv_mask=t(mask) if masked else None))
+    np.testing.assert_allclose(routed, out, atol=1e-6, rtol=1e-6)
+    one_chunk = T_ <= CHUNK
+    assert dispatch.plain_calls["full_attention"] - \
+        before["full_attention"] == int(one_chunk)
+    assert dispatch.plain_calls["local_attention"] - \
+        before["local_attention"] == int(not one_chunk)
+
+
+def test_local_attention_raises_off_the_chunk_grid():
+    """T > c that is no multiple of c: the XLA twin raises (an assert), so
+    do the plain version and the CUDA wrapper."""
+    q = t(rnd(1, CHUNK + 8, 1, 8, seed=24))
+    lengths = t(np.array([CHUNK + 8], np.int32))
+    with pytest.raises(ValueError):
+        la.local_attention_plain(q, q, q, lengths, chunk=CHUNK)
+    with pytest.raises(ValueError):
+        dispatch.local_attention(q, q, q, chunk=CHUNK)
+    with pytest.raises(ValueError):
+        la.local_attention_cuda(q, q, q, lengths, chunk=CHUNK)
 
 
 # --- row 2: full attention with a per-key mask --------------------------------
@@ -232,14 +285,17 @@ def test_cpu_tensors_take_the_plain_versions():
                                            chunk=CHUNK)))
     x, w, b = rnd(1, 20, 8, seed=7), rnd(7, 8, 15, seed=8), rnd(15, seed=9)
     dispatch.synthesis_head(t(x), t(w), t(b), n_fft=8, hop=4)
-    # outside the gate: the twin / plain op, not counted as a kernel call
+    # two chunks, outside JAX's Pallas gate: the local kernel's plain
+    # version all the same (there is no gate), counted
     dispatch.local_attention(t(q)[:, :64], t(k)[:, :64], t(v)[:, :64],
                              chunk=CHUNK)
     assert dispatch.plain_calls["local_attention"] == \
-        before["local_attention"] + 1
+        before["local_attention"] + 2
     assert dispatch.plain_calls["synthesis_head"] == \
         before["synthesis_head"] + 1
     assert (la.launches, head.launches) == launches
+    # none of them saw a CUDA tensor
+    assert not plain.cuda_calls
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -249,11 +305,19 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     x, w, b = rnd(1, 20, 8, seed=7), rnd(7, 8, 15, seed=8), rnd(15, seed=9)
     with pytest.raises(ValueError):
         head.synthesis_head_cuda(t(x), t(w), t(b), n_fft=8, hop=4)
+    x, s = t(rnd(1, 20, 8, seed=7)), t(rnd(1, 20, 8, seed=10))
+    mean, rstd = ac.instance_stats(x)
+    with pytest.raises(ValueError):
+        ac.adain_conv_pass_cuda(x, s, s, mean, rstd, t(rnd(5, 8, 8, seed=11)),
+                                dilation=1)
+    with pytest.raises(ValueError):
+        ct.conv_transpose1d_cuda(x, t(rnd(10, 8, 8, seed=12)), stride=5)
 
 
 def test_build_lists_every_source_and_names_the_target():
     names = [p.name for p in build.sources()]
-    assert names == ["full_attention.cu", "local_attention.cu", "sampler.cu",
+    assert names == ["adain_conv.cu", "conv_transpose.cu",
+                     "full_attention.cu", "local_attention.cu", "sampler.cu",
                      "synthesis_head.cu"]
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     for p in build.sources():

@@ -187,7 +187,8 @@ def test_sample_matches_jax(diffusion_world, use_pallas):
     # self- and a cross-attention each
     assert calls == {"local_attention": 0, "synthesis_head": 0,
                      "full_attention": 7 * 2 * 2, "sampler_euler": 4,
-                     "sampler_heun": 3}
+                     "sampler_heun": 3, "adain_conv": 0,
+                     "conv_transpose": 0}
 
 
 def test_sample_one_step_schedule_and_generator_noise(diffusion_world):
@@ -235,8 +236,10 @@ def test_chip_smoke_multistep_rehearsal_on_cpu():
     # none here), its 4-query pooling, and 5 denoiser calls x 2 blocks x
     # (self + cross)
     assert r["per_call"] == {"local_attention": 1, "full_attention": 24,
-                             "sampler_euler": 3, "sampler_heun": 2}
-    assert r["counts"] == {**r["per_call"], "synthesis_head": 0}
+                             "sampler_euler": 3, "sampler_heun": 2,
+                             "adain_conv": 4}
+    assert r["counts"] == {**r["per_call"], "synthesis_head": 0,
+                           "conv_transpose": 0}
     assert r["wav"] is None and int(r["out"].frame_lengths.min()) > 0
     # the 1-step program driven as the multi-step path: the sampler
     # kernels are launched no time, so the run fails
@@ -260,6 +263,7 @@ def test_chip_smoke_multistep_config_is_acceptance_config_3():
     expect = cs.expected_counts(cfg, 1024, one_step=False, n_steps=16,
                                 with_vocoder=False)
     # 2 text + 3 prosody + 4 prompt blocks + pooling, and 31 denoiser calls
-    # x 8 blocks x (self + cross)
+    # x 8 blocks x (self + cross); 6 decoder blocks of 2 AdaIN conv passes
     assert expect == {"local_attention": 3, "full_attention": 10 + 31 * 16,
-                      "sampler_euler": 16, "sampler_heun": 15}
+                      "sampler_euler": 16, "sampler_heun": 15,
+                      "adain_conv": 12}
