@@ -37,8 +37,22 @@ Phases, one line each with its seconds:
                   its 2048-frame bucket: time per call, audio-s/s, peak
                   memory, the launches per call of every kernel, and the
                   fp32 card path against the fp32 CPU plain path at batch 1;
-  9. profile    — the same breakdown for one long-form call.
-After every path on the card no plain version has seen a CUDA tensor.
+  9. profile    — the same breakdown for one long-form call;
+ 10. train_stage1 — the stage-1 acoustic GAN step (``Stage1Trainer``) at
+                  batch 16 x 1024 frames, full width, bf16, dropout on: one
+                  warm-up step, the median of 5, audio-s trained per s,
+                  peak memory, the loss terms (finite), the launches per
+                  step of every kernel (rows 3-5 and 7 in the backward)
+                  and the twin backwards; then fp32 on the card against
+                  fp32 on the CPU at batch 2 (FSQ codes and durations
+                  equal, every loss term and gradient tensor within its
+                  tolerance);
+ 11. profile    — the same breakdown for one train step.
+Phase 3 also holds the training kernels (rows 3-5: the local-attention
+forward with its log-sum-exp and the dq, dk/dv backward; row 7: the AdaIN
+conv backward-data) against their plain versions at the train step's
+shapes.  After every path on the card no plain version has seen a CUDA
+tensor.
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result; without a CUDA device it stops in
@@ -69,11 +83,16 @@ from styletts_zs_torch.kernels import local_attention as la_kernel  # noqa: E402
 from styletts_zs_torch.kernels import sampler as sampler_kernel  # noqa: E402
 from styletts_zs_torch.kernels import synthesis_head as head_kernel  # noqa: E402
 from styletts_zs_torch.models.diffusion import karras_sigmas  # noqa: E402
+from styletts_zs_torch.ops import align as align_ops  # noqa: E402
 from styletts_zs_torch.ops import conv as conv_ops  # noqa: E402
+from styletts_zs_torch.ops import stft as stft_ops  # noqa: E402
 from styletts_zs_torch.ops.attention import length_mask  # noqa: E402
 from styletts_zs_torch.pipelines.factory import (build_models,  # noqa: E402
                                                  init_params)
+from styletts_zs_torch.pipelines.data import SyntheticDataset  # noqa: E402
 from styletts_zs_torch.pipelines.infer import make_synthesis_fn  # noqa: E402
+from styletts_zs_torch.pipelines.train import (Stage1Trainer,  # noqa: E402
+                                               batch_to_device)
 
 REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
@@ -110,6 +129,21 @@ TOL = {
                    torch.bfloat16: (1e-2, 1e-2)},
     "conv_transpose": {torch.float32: (1e-4, 1e-4),
                        torch.bfloat16: (1e-2, 1e-2)},
+    # rows 3-5: the forward and its lse as row 1; the backward sums up to
+    # 768 products of p * (g v^T - delta) per output in another order (fp32
+    # ~1e-7 relative); bf16 rounds p and dS before their products at the
+    # same places as the plain version, so a value an ulp apart in fp32 can
+    # round one bf16 step apart there (moving an output by ~1e-5), and the
+    # output is rounded once: one bf16 step is under 1e-2 * |y|.
+    "local_attention_fwd_lse": {torch.float32: (1e-5, 1e-5),
+                                torch.bfloat16: (1e-2, 1e-2)},
+    "local_attention_bwd_dq": {torch.float32: (1e-5, 1e-4),
+                               torch.bfloat16: (1e-3, 1e-2)},
+    "local_attention_bwd_dkv": {torch.float32: (1e-5, 1e-4),
+                                torch.bfloat16: (1e-3, 1e-2)},
+    # row 7: row 6's sums (2 560 products, |y| up to ~5) times silu'
+    "adain_conv_bwd_data": {torch.float32: (1e-4, 1e-4),
+                            torch.bfloat16: (1e-2, 1e-2)},
 }
 # The untrained duration head predicts log-durations near 0, which round to
 # 0 frames: every utterance would be empty.  Its bias is set so that the
@@ -127,6 +161,27 @@ SHORT_TEXT = 200
 # Long-form: 256 phonemes fill 4864 frames at ~19 frames each, so the
 # duration head's bias is set for ~18 (the untrained head adds ~9 %).
 LONGFORM_DURATION_BIAS = float(np.log1p(17.0))
+# Stage-1 training: TrainConfig's batch of 16 clips of 1024 frames (12.8 s)
+# and 256 phonemes, so the decoder's attention spans 4 chunks of 256 and
+# runs the local-attention backward kernels.
+TRAIN_FRAMES, TRAIN_TEXT = 1024, 256
+# fp32 train step on the card against the CPU, at batch 2 (the seed gives
+# two different frame lengths): each loss term within LOSS_RTOL relative
+# (an fp32 forward through ~60 layers summed in another order; 1.5e-6
+# measured); each gradient tensor within GRAD_RTOL of its own largest
+# value, plus GRAD_FLOOR of the largest gradient of its model (a tensor
+# whose gradient is zero by construction, such as the text-side alignment
+# projection's bias under the softmax over text, holds only rounding).
+# GRAD_RTOL is 1e-2, not 1e-3: the fp32 CPU reference run with 3 threads
+# instead of 8 already differs from itself by 7.0e-3 of the largest value
+# on the vocoder's stage-2 resblock biases (sums over 51 200 frames), and
+# the card by 7.1e-3 (cuDNN's convs) or 7.0e-3 (PyTorch's own convs), so
+# 1e-3 is below fp32's summation-order noise there; the script also prints
+# how many tensors exceed 1e-3.
+LOSS_RTOL = 1e-4
+GRAD_RTOL = 1e-2
+GRAD_FLOOR = 1e-6
+PARITY_SEED = 1
 SOURCES = {
     "local_attention": ("styletts_zs_torch/csrc/local_attention.cu",
                         "styletts_zs_tpu/kernels/attention_kernel.py:35"),
@@ -142,6 +197,14 @@ SOURCES = {
                    "styletts_zs_tpu/kernels/decoder_kernels.py:43"),
     "conv_transpose": ("styletts_zs_torch/csrc/conv_transpose.cu",
                        "styletts_zs_tpu/kernels/vocoder_kernels.py:41"),
+    "local_attention_fwd_lse": ("styletts_zs_torch/csrc/local_attention.cu",
+                                "styletts_zs_tpu/kernels/attention_kernel.py:205"),
+    "local_attention_bwd_dq": ("styletts_zs_torch/csrc/local_attention_bwd.cu",
+                               "styletts_zs_tpu/kernels/attention_kernel.py:268"),
+    "local_attention_bwd_dkv": ("styletts_zs_torch/csrc/local_attention_bwd.cu",
+                                "styletts_zs_tpu/kernels/attention_kernel.py:301"),
+    "adain_conv_bwd_data": ("styletts_zs_torch/csrc/adain_conv_bwd.cu",
+                            "styletts_zs_tpu/kernels/decoder_kernels.py:203"),
 }
 MULTISTEP_CONFIG = REPO / "configs" / "multistep_b32.toml"
 LONGFORM_CONFIG = REPO / "configs" / "longform_60s.toml"
@@ -752,13 +815,194 @@ def check_conv_transpose(card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 3, training kernels: rows 3-5 and 7
+# ---------------------------------------------------------------------------
+
+def _attention_train_inputs(B, T, dtype, g, chunk):
+    """q/k/v as views of one fused projection; key lengths that mask part
+    of the last chunks (one of them leaves the last chunk's queries with no
+    valid key); the output's cotangent, zeroed on the query rows past the
+    length as the decoder's mask zeroes it."""
+    H, D = 8, 64
+    qkv = torch.randn(B, T, 3 * H * D, generator=g, device="cuda").to(dtype)
+    q, k, v = (t.reshape(B, T, H, D) for t in qkv.split(H * D, dim=-1))
+    lengths = torch.randint(T - 2 * chunk + 1, T + 1, (B,), generator=g,
+                            device="cuda")
+    lengths[:3] = torch.tensor([T, T - 1, T - 2 * chunk + 7], device="cuda")
+    lengths = lengths.to(torch.int32)
+    gout = torch.randn(B, T, H, D, generator=g, device="cuda")
+    gout = (gout * length_mask(lengths, T)[..., None, None]).to(dtype)
+    return q, k, v, gout, lengths
+
+
+def _sdpa_mask(lengths, T, chunk):
+    t = torch.arange(T, device="cuda")
+    band = ((t[:, None] // chunk) - (t[None, :] // chunk)).abs() <= 1
+    return band[None, None] & length_mask(lengths, T)[:, None, None, :]
+
+
+def _check_attention_train_case(B, T, chunk, g, label) -> tuple[dict, dict]:
+    """Rows 3, 4 and 5 against their plain versions, fp32 and bf16; times
+    at bf16.  Returns (max abs errors, times) by kernel."""
+    errs = {"local_attention_fwd_lse": 0.0, "local_attention_bwd_dq": 0.0,
+            "local_attention_bwd_dkv": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, gout, lengths = _attention_train_inputs(B, T, dtype, g, chunk)
+        out, lse = la_kernel.local_attention_fwd_lse_cuda(q, k, v, lengths,
+                                                          chunk=chunk)
+        ref_out, ref_lse = la_kernel.local_attention_fwd_lse_plain(
+            q, k, v, lengths, chunk=chunk)
+        delta = (gout.float() * out.float()).sum(-1).transpose(1, 2) \
+            .contiguous()
+        args = (q, k, v, gout, lse, delta, lengths)
+        dq = la_kernel.local_attention_bwd_dq_cuda(*args, chunk=chunk)
+        dk, dv = la_kernel.local_attention_bwd_dkv_cuda(*args, chunk=chunk)
+        ref_dq = la_kernel.local_attention_bwd_dq_plain(*args, chunk=chunk)
+        ref_dk, ref_dv = la_kernel.local_attention_bwd_dkv_plain(*args,
+                                                                 chunk=chunk)
+        torch.cuda.synchronize()
+        for name, pairs in (
+                ("local_attention_fwd_lse", (("out", out, ref_out),
+                                             ("lse", lse, ref_lse))),
+                ("local_attention_bwd_dq", (("dq", dq, ref_dq),)),
+                ("local_attention_bwd_dkv", (("dk", dk, ref_dk),
+                                             ("dv", dv, ref_dv)))):
+            for what, o, r in pairs:
+                errs[name] = max(errs[name], check_close(
+                    name, f"{label} {what}", dtype, o, r))
+        del ref_out, ref_lse, ref_dq, ref_dk, ref_dv
+    fwd = lambda: la_kernel.local_attention_fwd_lse_cuda(  # noqa: E731
+        q, k, v, lengths, chunk=chunk)
+    dq_fn = lambda: la_kernel.local_attention_bwd_dq_cuda(  # noqa: E731
+        *args, chunk=chunk)
+    dkv_fn = lambda: la_kernel.local_attention_bwd_dkv_cuda(  # noqa: E731
+        *args, chunk=chunk)
+    plain_fns = {
+        "local_attention_fwd_lse": lambda: la_kernel.local_attention_fwd_lse_plain(
+            q, k, v, lengths, chunk=chunk),
+        "local_attention_bwd_dq": lambda: la_kernel.local_attention_bwd_dq_plain(
+            *args, chunk=chunk),
+        "local_attention_bwd_dkv": lambda: la_kernel.local_attention_bwd_dkv_plain(
+            *args, chunk=chunk)}
+    # the library: SDPA with the band and length mask, forward, then its
+    # backward alone (dq, dk and dv in one call)
+    mask = _sdpa_mask(lengths, T, chunk)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_fwd = cuda_ms(lambda: sdpa(qt.detach(), kt.detach(), vt.detach(),
+                                   attn_mask=mask), iters=5)
+    lib_out = sdpa(qt, kt, vt, attn_mask=mask)
+    gt = gout.transpose(1, 2)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), gt, retain_graph=True), iters=5)
+    _, fwd_flops = _attention_work(lengths.cpu(), T, 8, 64, chunk, 2)
+    it = 2
+    qkv_bytes = 3 * B * T * 8 * 64 * it
+    stat_bytes = B * 8 * T * 4
+    work = {"local_attention_fwd_lse": (qkv_bytes + B * T * 512 * it
+                                        + stat_bytes, fwd_flops),
+            "local_attention_bwd_dq": (qkv_bytes + 2 * B * T * 512 * it
+                                       + 2 * stat_bytes, fwd_flops * 3 // 2),
+            "local_attention_bwd_dkv": (qkv_bytes + 3 * B * T * 512 * it
+                                        + 2 * stat_bytes, fwd_flops * 2)}
+    times = {}
+    for name, fn in (("local_attention_fwd_lse", fwd),
+                     ("local_attention_bwd_dq", dq_fn),
+                     ("local_attention_bwd_dkv", dkv_fn)):
+        ms = cuda_ms(fn)
+        plain_ms = cuda_ms(plain_fns[name], iters=2)
+        lib = lib_fwd if name.endswith("lse") else lib_bwd
+        bms, by = bound_ms(*work[name], BF16_FLOP_PER_S)
+        print(f"  {name} bf16 {label} B{B} T{T} H8 D64 c{chunk}: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+              f"{'forward' if name.endswith('lse') else 'backward (dq, dk, dv)'}"
+              f" {lib:.4f} ms, bound {bms:.4f} ms ({by})")
+        times[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                       "bound_by": by, "library_ms": lib}
+    return errs, times
+
+
+def check_local_attention_train(card: str, chunk: int = 256) -> dict:
+    """Rows 3, 4 and 5 at the train step's shape (B 16, T 1024, H 8, D 64,
+    c 256) and at T 512 = 2c, masked, fp32 and bf16."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+    res = {}
+    errs, times = _check_attention_train_case(16, 1024, chunk, g, "T1024")
+    errs2, times2 = _check_attention_train_case(16, 2 * chunk, chunk, g,
+                                                f"T{2 * chunk}")
+    for name in errs:
+        res[name] = {"max_abs_err": max(errs[name], errs2[name]),
+                     **times[name], f"T{2 * chunk}": times2[name]}
+    print(f"  (rows 3-5 timed on [{card}])")
+    return res
+
+
+def _adain_bwd_library(dc, x, sc, sh, mean, rstd, w, dilation):
+    """The same function from PyTorch: cuDNN's conv backward-data
+    (``torch.nn.grad.conv1d_input``) and the silu' multiply."""
+    B, T, C = x.shape
+    K = w.shape[0]
+    da = torch.nn.grad.conv1d_input(
+        (B, C, T), w.permute(2, 1, 0), dc.transpose(1, 2),
+        padding=(K - 1) * dilation // 2, dilation=dilation)
+    return (da.transpose(1, 2).float()
+            * ac_kernel._dsilu(x, sc, sh, mean, rstd)).to(dc.dtype)
+
+
+def check_adain_conv_bwd(card: str) -> dict:
+    """Row 7 at the train step's shape (B 16, T 1024, C 512 -> 512, K 5):
+    fp32 and bf16, dilations 1, 3 and 9, time-varying and global style;
+    times at bf16 with time-varying style."""
+    g = torch.Generator(device="cuda").manual_seed(10)
+    B, T = 16, 1024
+    res, errs = {}, []
+    for dtype in (torch.float32, torch.bfloat16):
+        for tv in (True, False):
+            args = _adain_inputs(B, T, dtype, g, time_varying=tv)
+            dc = torch.randn(B, T, 512, generator=g, device="cuda").to(dtype)
+            for d in (1, 3, 9):
+                out = ac_kernel.adain_conv_bwd_data_cuda(dc, *args,
+                                                         dilation=d)
+                ref = ac_kernel.adain_conv_bwd_data_plain(dc, *args,
+                                                          dilation=d)
+                torch.cuda.synchronize()
+                errs.append(check_close(
+                    "adain_conv_bwd_data", f"d{d}{'' if tv else ' global'}",
+                    dtype, out, ref))
+    args = _adain_inputs(B, T, torch.bfloat16, g, time_varying=True)
+    dc = torch.randn(B, T, 512, generator=g, device="cuda").to(torch.bfloat16)
+    n_bytes, flops = _adain_work(*args[:3], args[5])
+    bms, by = bound_ms(n_bytes + dc.numel() * 2, flops, BF16_FLOP_PER_S)
+    for d in (1, 3, 9):
+        ms = cuda_ms(lambda: ac_kernel.adain_conv_bwd_data_cuda(
+            dc, *args, dilation=d))
+        plain_ms = cuda_ms(lambda: ac_kernel.adain_conv_bwd_data_plain(
+            dc, *args, dilation=d), iters=3)
+        library_ms = cuda_ms(lambda: _adain_bwd_library(dc, *args, d),
+                             iters=5)
+        print(f"  adain_conv_bwd_data bf16 B{B} T{T} 512->512 K5 d{d}: "
+              + _conv_time_label(ms, plain_ms, library_ms, bms, by, card))
+        entry = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                 "bound_by": by, "library_ms": library_ms}
+        if d == 1:
+            res.update(entry)
+        else:
+            res[f"d{d}"] = entry
+    res["max_abs_err"] = max(errs)
+    return res
+
+
 def phase_kernel_checks(card: str) -> dict:
     return {"local_attention": check_local_attention(),
             "synthesis_head": check_synthesis_head(),
             "full_attention": check_full_attention(card),
             **check_sampler(card),
             "adain_conv": check_adain_conv(card),
-            "conv_transpose": check_conv_transpose(card)}
+            "conv_transpose": check_conv_transpose(card),
+            **check_local_attention_train(card),
+            "adain_conv_bwd_data": check_adain_conv_bwd(card)}
 
 
 # ---------------------------------------------------------------------------
@@ -767,14 +1011,19 @@ def phase_kernel_checks(card: str) -> dict:
 
 def reset_counts() -> None:
     la_kernel.launches = 0
+    la_kernel.fwd_lse_launches = 0
+    la_kernel.bwd_dq_launches = 0
+    la_kernel.bwd_dkv_launches = 0
     head_kernel.launches = 0
     fa_kernel.launches = 0
     ac_kernel.launches = 0
+    ac_kernel.bwd_data_launches = 0
     ct_kernel.launches = 0
     for counts in (sampler_kernel.launches, dispatch.plain_calls):
         for name in counts:
             counts[name] = 0
     plain.cuda_calls.clear()
+    plain.twin_vjp_calls.clear()
 
 
 def kernel_counts(device: torch.device) -> dict:
@@ -785,7 +1034,11 @@ def kernel_counts(device: torch.device) -> dict:
                 "full_attention": fa_kernel.launches,
                 **sampler_kernel.launches,
                 "adain_conv": ac_kernel.launches,
-                "conv_transpose": ct_kernel.launches}
+                "conv_transpose": ct_kernel.launches,
+                "local_attention_fwd_lse": la_kernel.fwd_lse_launches,
+                "local_attention_bwd_dq": la_kernel.bwd_dq_launches,
+                "local_attention_bwd_dkv": la_kernel.bwd_dkv_launches,
+                "adain_conv_bwd_data": ac_kernel.bwd_data_launches}
     return dict(dispatch.plain_calls)
 
 
@@ -1159,6 +1412,260 @@ def phase_longform(card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# the stage-1 train step
+# ---------------------------------------------------------------------------
+
+def train_config() -> Config:
+    """``bench_config()``'s model (147.6 M parameters, 256 phonemes) with
+    ``TrainConfig``'s defaults: batch 16, dropout 0.1, bf16 compute."""
+    return bench_config()
+
+
+def train_expected_counts(cfg: Config, n_frames: int) -> dict:
+    """Kernel calls of one stage-1 step.  The generator step: the aligner's
+    text encoder, the style extractor (reconstruction and the
+    FSQ entropy term), the text-to-mel encoders, the prompt encoder for each
+    speaker view, each with full attention; the decoder's blocks through
+    the training kernels (rows 3-5 per attention block; row 6 twice and row
+    7 twice per AdaIN block); the vocoder's transposed convs and head.  The
+    discriminator step: the generator's forward under no_grad (row 1, row 6
+    twice per block, the vocoder), without the aligner."""
+    m, t = cfg.model, cfg.train
+    d, v = m.decoder, m.vocoder
+    n_attn = sum(1 for i in range(d.n_blocks) if (i + 1) % d.attn_every == 0)
+    enc = m.text_encoder.n_attn_layers + m.prosody_encoder.n_layers
+    ext = m.style.extractor_layers + 2
+    views = 0
+    if t.w_spk > 0:
+        views = 2 + (t.w_spk_rec > 0) + (t.w_spk_voc > 0)
+    g_full = ((m.text_encoder.n_attn_layers if t.w_align > 0 else 0)
+              + enc + ext
+              + views * (m.prompt_encoder.n_layers + 1)
+              + (ext if t.w_fsq_entropy > 0 else 0))
+    expect = {"full_attention": g_full + enc + ext,
+              "adain_conv": 4 * d.n_blocks,
+              "adain_conv_bwd_data": 2 * d.n_blocks,
+              "conv_transpose": 2 * len(v.upsample_rates),
+              "synthesis_head": 2}
+    twins = {"full_attention": g_full,
+             "conv_transpose": len(v.upsample_rates), "synthesis_head": 1}
+    if n_frames > d.attn_window:
+        expect.update(local_attention=n_attn, local_attention_fwd_lse=n_attn,
+                      local_attention_bwd_dq=n_attn,
+                      local_attention_bwd_dkv=n_attn)
+    else:
+        expect["full_attention"] += 2 * n_attn
+        twins["full_attention"] += n_attn
+    return {"kernels": expect, "twins": twins}
+
+
+def drive_train(cfg: Config, trainer, state, batch, *, device,
+                n_steps: int) -> dict:
+    """``n_steps`` train steps, each timed to its end, with the kernel
+    counts set to 0 just before and read just after: every kernel of the
+    step launched as often as expected and no other, the twin backwards as
+    expected, on the card no plain version, every loss finite."""
+    device = torch.device(device)
+    n_frames = batch["f0"].shape[1]
+    expect = train_expected_counts(cfg, n_frames)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    times = []
+    reset_counts()
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, batch)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts = kernel_counts(device)
+    twins = dict(plain.twin_vjp_calls)
+    if device.type == "cuda":
+        check_no_plain_on_card("stage-1 train step")
+    per = expect["kernels"]
+    wrong = [f"{name}: {n} calls in {n_steps} steps, expected "
+             f"{per.get(name, 0)} each" for name, n in counts.items()
+             if n != per.get(name, 0) * n_steps]
+    wrong += [f"twin backward {name}: {twins.get(name, 0)} in {n_steps} "
+              f"steps, expected {n} each" for name, n in
+              expect["twins"].items() if twins.get(name, 0) != n * n_steps]
+    if wrong:
+        raise AssertionError("; ".join(wrong))
+    losses = {k: float(v) for k, v in metrics.items()}
+    bad = [k for k, v in losses.items() if not np.isfinite(v)]
+    if bad:
+        raise AssertionError(f"train step: losses not finite: {bad}")
+    return {"seconds": float(np.median(times)), "times": times,
+            "counts": counts, "twins": twins, "per_step": per,
+            "losses": losses, "state": state}
+
+
+def _no_dropout(cfg: Config) -> Config:
+    """The three dropout rates at 0 (the parity runs' setting)."""
+    m = cfg.model
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        m, text_encoder=dataclasses.replace(m.text_encoder, dropout=0.0),
+        prosody_encoder=dataclasses.replace(m.prosody_encoder, dropout=0.0),
+        predictor=dataclasses.replace(m.predictor, dropout=0.0)))
+
+
+def train_parity_run(cfg: Config, params, nb, device) -> dict:
+    """One fp32 generator and discriminator loss with their gradients on
+    ``device``, the FSQ codes of the ground-truth mel and the predicted
+    durations, at the initial weights."""
+    tr = Stage1Trainer(cfg, params, device=device)
+    state = tr.init_state(params)
+    batch = batch_to_device(nb, device)
+    tr.load(state.g_params, state.d_params)
+    _, g_aux, g_grads = tr.g_grads(batch)
+    _, d_aux, d_grads = tr.d_grads(batch)
+    ac, m = tr.acoustic, cfg.model
+    with torch.no_grad():
+        n_frames = batch["f0"].shape[1]
+        mel = stft_ops.mel_spectrogram(batch["wav"], m.audio)[:, :n_frames]
+        frame_mask = length_mask(batch["frame_lengths"], n_frames)
+        text_mask = length_mask(batch["text_lengths"],
+                                batch["phonemes"].shape[1])
+        styled, _, indices = ac.extract_style(mel, frame_mask)
+        _, pros = ac.encode_text(batch["phonemes"], text_mask)
+        durations = ac.duration_predictor.to_frames(ac.duration_predictor(
+            pros, styled.mean(dim=1), mask=text_mask), text_mask)
+    cpu = lambda tree: {k: v.detach().cpu() for k, v in tree.items()}  # noqa: E731
+    return {"losses": {k: v.item() for k, v in {**g_aux, **d_aux}.items()},
+            "grads": {**{f"{p}.{k}": v for p, sd in g_grads.items()
+                         for k, v in cpu(sd).items()},
+                      **{f"discriminator.{k}": v
+                         for k, v in cpu(d_grads).items()}},
+            "indices": indices.cpu(), "durations": durations.cpu()}
+
+
+def check_train_parity(card: str, cfg: Config, params) -> None:
+    """fp32 on the card (the kernels, TF32 off) against fp32 on the CPU
+    (the plain versions), dropout 0, full width, batch 2 x 1024 frames with
+    two different frame lengths: FSQ codes and predicted durations equal,
+    each loss term within LOSS_RTOL, each gradient tensor within GRAD_RTOL
+    of its largest value (plus GRAD_FLOOR of its model's largest)."""
+    cfg32 = dataclasses.replace(_no_dropout(cfg), runtime=RuntimeConfig(
+        compute_dtype="float32"))
+    nb = SyntheticDataset(cfg.model, batch_size=2, seed=PARITY_SEED,
+                          n_frames=TRAIN_FRAMES, text_len=TRAIN_TEXT) \
+        .next_batch()
+    if nb.frame_lengths[0] == nb.frame_lengths[1]:
+        raise AssertionError(f"parity batch: equal frame lengths "
+                             f"{nb.frame_lengths}")
+    t0 = time.perf_counter()
+    ref = train_parity_run(cfg32, params, nb, "cpu")
+    t_cpu = time.perf_counter() - t0
+    reset_counts()
+    got = train_parity_run(cfg32, params, nb, "cuda")
+    check_no_plain_on_card("fp32 stage-1 card step")
+    if not torch.equal(got["indices"], ref["indices"]):
+        raise AssertionError("fp32 train step: FSQ codes differ from the "
+                             "CPU's")
+    if not torch.equal(got["durations"], ref["durations"]):
+        raise AssertionError("fp32 train step: predicted durations differ "
+                             "from the CPU's")
+    loss_err = {k: abs(got["losses"][k] - v) / max(abs(v), 1e-30) if v
+                else abs(got["losses"][k]) for k, v in ref["losses"].items()}
+    worst_loss = max(loss_err, key=loss_err.get)
+    scale = {}
+    for name, g in ref["grads"].items():
+        part = name.split(".")[0]
+        scale[part] = max(scale.get(part, 0.0), g.abs().max().item())
+    ratios, n_over = {}, 0
+    for name, g in ref["grads"].items():
+        err = (got["grads"][name] - g).abs().max().item()
+        floor = GRAD_FLOOR * scale[name.split(".")[0]]
+        top = g.abs().max().item()
+        allowed = GRAD_RTOL * top + floor
+        ratios[name] = err / allowed if allowed > 0 else (0.0 if err == 0
+                                                          else np.inf)
+        n_over += err > 1e-3 * top + floor
+    worst = sorted(ratios, key=ratios.get, reverse=True)[:3]
+    print(f"  fp32 card vs fp32 CPU plain path, batch 2 x {TRAIN_FRAMES} "
+          f"frames (frame lengths {nb.frame_lengths.tolist()}), dropout 0: "
+          f"FSQ codes equal, predicted durations equal; worst loss term "
+          f"{worst_loss} rel err {loss_err[worst_loss]:.2e} (tol "
+          f"{LOSS_RTOL:.0e}); {len(ratios)} gradient tensors, worst "
+          f"err/allowed {', '.join(f'{k} {ratios[k]:.3f}' for k in worst)} "
+          f"(allowed {GRAD_RTOL:.0e} * max|g| + {GRAD_FLOOR:.0e} * the "
+          f"model's max|g|; {n_over} tensors above 1e-3 * max|g|; CPU run "
+          f"{t_cpu:.1f} s)  [{card}]")
+    bad = [k for k, e in loss_err.items() if not e <= LOSS_RTOL]
+    if bad:
+        raise AssertionError(f"fp32 train step vs CPU: loss terms {bad}: "
+                             f"{ {k: loss_err[k] for k in bad} }")
+    bad = [k for k, r in ratios.items() if not r <= 1.0]
+    if bad:
+        raise AssertionError(f"fp32 train step vs CPU: gradients {bad[:10]}")
+
+
+def phase_train(card: str) -> dict:
+    """The stage-1 step at batch 16 x 1024 frames, bf16, dropout on: one
+    warm-up step, then the median of 5, the launches per step, peak memory
+    and the loss terms; then the fp32 card-vs-CPU check."""
+    cfg = train_config()
+    m, t = cfg.model, cfg.train
+    params = init_params(cfg, seed=0, device="cpu", with_discriminator=True)
+    params["acoustic"]["duration_predictor.out.bias"].fill_(DURATION_BIAS)
+    trainer = Stage1Trainer(cfg, params, device="cuda", seed=0)
+    state = trainer.init_state(params)
+    ds = SyntheticDataset(m, batch_size=t.batch_size, seed=0,
+                          n_frames=TRAIN_FRAMES, text_len=TRAIN_TEXT)
+    batch = batch_to_device(ds.next_batch(), "cuda")
+    state, _ = trainer.train_step(state, batch)          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n_steps = 5
+    r = drive_train(cfg, trainer, state, batch, device="cuda",
+                    n_steps=n_steps)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    audio_s = t.batch_size * TRAIN_FRAMES * m.audio.hop_length \
+        / m.audio.sample_rate
+    ms = [x * 1e3 for x in r["times"]]
+    print(f"  batch {t.batch_size} x {TRAIN_FRAMES} frames ({TRAIN_TEXT} "
+          f"phonemes), bf16, dropout on: {r['seconds'] * 1e3:.1f} ms/step "
+          f"(median of {n_steps}, min {min(ms):.1f}, max {max(ms):.1f}), "
+          f"{audio_s / r['seconds']:.1f} audio-s trained per s ({audio_s:.1f} "
+          f"audio-s per step), peak memory {peak_gb:.2f} GB  [{card}]")
+    print(f"  losses of the last step: "
+          f"{ {k: round(v, 5) for k, v in r['losses'].items()} }")
+    print(f"  kernel launches per step: "
+          f"{ {k: n / n_steps for k, n in r['counts'].items()} } (expected "
+          f"{r['per_step']}); twin backwards per step "
+          f"{ {k: n / n_steps for k, n in r['twins'].items()} }; plain "
+          f"versions on the card: none")
+    # the forward-sum loss alone at the step's lattice: its loop over the
+    # frames is launch-bound
+    from torch.profiler import ProfilerActivity, profile
+    lp = torch.randn(t.batch_size, TRAIN_FRAMES, TRAIN_TEXT, device="cuda") \
+        .log_softmax(-1).requires_grad_()
+
+    def fsum():
+        align_ops.forward_sum_loss(lp, batch["text_lengths"],
+                                   batch["frame_lengths"]).backward()
+    fsum()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fsum()
+    torch.cuda.synchronize()
+    fsum_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fsum()
+        torch.cuda.synchronize()
+    n_launch = sum(e.count for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    print(f"  forward-sum loss alone ({t.batch_size} x {TRAIN_FRAMES} frames "
+          f"x {TRAIN_TEXT} phonemes), forward + backward: {fsum_ms:.1f} ms, "
+          f"{n_launch} kernel launches  [{card}]")
+    check_train_parity(card, cfg, params)
+    step_state = r["state"]
+    return {"counts": r["counts"], "n_calls": n_steps,
+            "fn": lambda: trainer.train_step(step_state, batch),
+            "inputs": ()}
+
+
 def _profiled_call(fn, inputs, *, record_shapes: bool):
     """One call of ``fn`` under ``torch.profiler``: (profile, wall us)."""
     from torch.profiler import ProfilerActivity, profile
@@ -1187,6 +1694,19 @@ def phase_profile(fn, inputs, card: str, label: str) -> None:
     print(f"  {label}, one call: wall {wall_us / 1e3:.1f} ms, device busy "
           f"{busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.0f}%), "
           f"{sum(e.count for e in kernels)} kernel launches  [{card}]")
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    gaps, last_end = [], spans[0][1] if spans else 0
+    for start, end, name in spans[1:]:
+        if start > last_end:
+            gaps.append((start - last_end, name))
+        last_end = max(last_end, end)
+    gaps.sort(reverse=True)
+    print(f"    device idle between kernels: "
+          f"{sum(g for g, _ in gaps) / 1e3:.1f} ms in {len(gaps)} gaps; "
+          f"the longest (ms, the kernel that ended it): "
+          + "; ".join(f"{g / 1e3:.2f} {name[:50]}" for g, name in gaps[:5]))
     shaped, _ = _profiled_call(fn, inputs, record_shapes=True)
     launched_by: dict[str, dict] = {}
     for ev in shaped.events():
@@ -1225,10 +1745,16 @@ def main() -> None:
     with phase("profile long-form"):
         lf = longf[4864]
         phase_profile(lf["fn"], lf["inputs"], card, "long-form batch 4 x 4864")
+    with phase("train_stage1"):
+        train = phase_train(card)
+    with phase("profile train_stage1"):
+        phase_profile(train["fn"], train["inputs"], card,
+                      "stage-1 train step, batch 16 x 1024")
     paths = {"one_step": (main_res["counts"], main_res["n_calls"]),
              "multi_step": (multi["counts"], multi["n_calls"]),
              "long_form": (lf["counts"], lf["n_calls"]),
-             "long_form_2048": (longf[2048]["counts"], longf[2048]["n_calls"])}
+             "long_form_2048": (longf[2048]["counts"], longf[2048]["n_calls"]),
+             "train_stage1": (train["counts"], train["n_calls"])}
     kernels = []
     for name, c in checks.items():
         src, replaces = SOURCES[name]

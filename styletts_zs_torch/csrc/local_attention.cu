@@ -1,7 +1,13 @@
 // Chunk-local attention forward, written by hand for Hopper (sm_90a).
 //
 // Replaces styletts_zs_tpu/kernels/attention_kernel.py::_local_attn_kernel
-// (the pallas_call in _local_attention_impl, wrapper local_attention_pallas).
+// (the pallas_call in _local_attention_impl, wrapper local_attention_pallas)
+// and, through the entry point local_attention_fwd_lse, ::_local_attn_fwd_
+// lse_kernel (the pallas_call in _local_attention_fwd_lse_impl, wrapper
+// local_attention_fwd_pallas): the same pass that also writes each query's
+// log-sum-exp lse = m + log(max(sum, 1e-30)) in fp32, (B, H, T), for the
+// backward kernels of csrc/local_attention_bwd.cu.  A query with no valid
+// key gets lse = -1e30 + log W = -1e30 in fp32, as in the Pallas kernel.
 //
 // What it computes: for the queries of chunk i (chunk c), attention over the
 // keys of the clipped window [s0, s0 + W), W = min(3c, T),
@@ -56,11 +62,12 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(x);
 }
 
-template <typename T>
+template <typename T, bool kLse>
 __global__ void __launch_bounds__(kThreads)
 local_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const int* __restrict__ lengths,
-                      T* __restrict__ out, int T_total, int H, int chunk,
+                      T* __restrict__ out, float* __restrict__ lse,
+                      int T_total, int H, int chunk,
                       long long q_sb, long long q_st, long long q_sh,
                       long long k_sb, long long k_st, long long k_sh,
                       long long v_sb, long long v_st, long long v_sh,
@@ -189,6 +196,10 @@ local_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       ob[row * H * kD + tx + 16 * j] = from_f<T>(acc[a][j] * inv);
+    // m_run and l_run are the whole row's on all 16 lanes of the row
+    if (kLse && tx == 0)
+      lse[((long long)b * H + h) * T_total + row] =
+          m_run[a] + logf(fmaxf(l_run[a], 1e-30f));
   }
 }
 
@@ -200,12 +211,14 @@ constexpr int kTcThreads = 128;    // 4 warps x 16 query rows
 constexpr int kLdh = kD + 8;       // bf16 row stride: 144 bytes
 constexpr int kLds = kD + 4;       // fp32 row stride: 272 bytes
 
+template <bool kLse>
 __global__ void __launch_bounds__(kTcThreads)
 local_attn_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v,
                          const int* __restrict__ lengths,
-                         __nv_bfloat16* __restrict__ out, int T_total, int H,
+                         __nv_bfloat16* __restrict__ out,
+                         float* __restrict__ lse, int T_total, int H,
                          int chunk, long long q_sb, long long q_st,
                          long long q_sh, long long k_sb, long long k_st,
                          long long k_sh, long long v_sb, long long v_st,
@@ -346,6 +359,9 @@ local_attn_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   }
 
   const float inv = 1.f / fmaxf(l_run, 1e-30f);
+  if (kLse && half == 0)
+    lse[((long long)b * H + h) * T_total + q0 + row] =
+        m_run + logf(fmaxf(l_run, 1e-30f));
   __nv_bfloat16* orow =
       out + (((long long)b * T_total + q0 + row) * H + h) * kD + 32 * half;
 #pragma unroll
@@ -354,22 +370,23 @@ local_attn_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
         __floats2bfloat162_rn(o[d] * inv, o[d + 1] * inv);
 }
 
+template <bool kLse>
 int launch_tc(const void* q, const void* k, const void* v, const int* lengths,
-              void* out, int B, int T_total, int H, int chunk,
+              void* out, float* lse, int B, int T_total, int H, int chunk,
               const long long* qs, const long long* ks, const long long* vs,
               float scale, cudaStream_t stream) {
   const size_t smem = sizeof(__nv_bfloat16) * 4 * kBQ * kLdh +
                       sizeof(float) * kBQ * kLds;
   cudaError_t err = cudaFuncSetAttribute(
-      local_attn_fwd_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      local_attn_fwd_tc_kernel<kLse>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(T_total / kBQ, H, B);
-  local_attn_fwd_tc_kernel<<<grid, kTcThreads, smem, stream>>>(
+  local_attn_fwd_tc_kernel<kLse><<<grid, kTcThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), lengths,
-      static_cast<__nv_bfloat16*>(out), T_total, H, chunk, qs[0], qs[1], qs[2],
-      ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], scale);
+      static_cast<__nv_bfloat16*>(out), lse, T_total, H, chunk, qs[0], qs[1],
+      qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], scale);
   return (int)cudaGetLastError();
 }
 
@@ -380,23 +397,43 @@ bool aligned16(const void* p, const long long* strides) {
   return true;
 }
 
-template <typename T>
+template <typename T, bool kLse>
 int launch(const void* q, const void* k, const void* v, const int* lengths,
-           void* out, int B, int T_total, int H, int chunk,
+           void* out, float* lse, int B, int T_total, int H, int chunk,
            const long long* qs, const long long* ks, const long long* vs,
            float scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) * 4 * kBQ * kPad;
   cudaError_t err = cudaFuncSetAttribute(
-      local_attn_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      local_attn_fwd_kernel<T, kLse>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(T_total / kBQ, H, B);
-  local_attn_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+  local_attn_fwd_kernel<T, kLse><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lengths, static_cast<T*>(out), T_total, H,
-      chunk, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
+      static_cast<const T*>(v), lengths, static_cast<T*>(out), lse, T_total,
+      H, chunk, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
       scale);
   return (int)cudaGetLastError();
+}
+
+template <bool kLse>
+int dispatch(int dtype, const void* q, const void* k, const void* v,
+             const int* lengths, void* out, float* lse, int B, int T, int H,
+             int D, int chunk, const long long* qs, const long long* ks,
+             const long long* vs, float scale, void* stream) {
+  if (D != kD || chunk % kBQ != 0 || T % chunk != 0 || T < 2 * chunk)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float, kLse>(q, k, v, lengths, out, lse, B, T, H, chunk, qs,
+                               ks, vs, scale, st);
+  if (dtype == 1 && aligned16(q, qs) && aligned16(k, ks) && aligned16(v, vs))
+    return launch_tc<kLse>(q, k, v, lengths, out, lse, B, T, H, chunk, qs, ks,
+                           vs, scale, st);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, kLse>(q, k, v, lengths, out, lse, B, T, H,
+                                       chunk, qs, ks, vs, scale, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -412,20 +449,27 @@ extern "C" int local_attention_fwd(int dtype, const void* q, const void* k,
                                    long long k_st, long long k_sh,
                                    long long v_sb, long long v_st,
                                    long long v_sh, float scale, void* stream) {
-  if (D != kD || chunk % kBQ != 0 || T % chunk != 0 || T < 2 * chunk)
-    return (int)cudaErrorInvalidValue;
   const long long qs[3] = {q_sb, q_st, q_sh};
   const long long ks[3] = {k_sb, k_st, k_sh};
   const long long vs[3] = {v_sb, v_st, v_sh};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(q, k, v, lengths, out, B, T, H, chunk, qs, ks, vs,
-                         scale, st);
-  if (dtype == 1 && aligned16(q, qs) && aligned16(k, ks) && aligned16(v, vs))
-    return launch_tc(q, k, v, lengths, out, B, T, H, chunk, qs, ks, vs, scale,
-                     st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, lengths, out, B, T, H, chunk, qs,
-                                 ks, vs, scale, st);
-  return (int)cudaErrorInvalidValue;
+  return dispatch<false>(dtype, q, k, v, lengths, out, nullptr, B, T, H, D,
+                         chunk, qs, ks, vs, scale, stream);
+}
+
+// The same, and each query's log-sum-exp into lse, contiguous (B, H, T) fp32.
+extern "C" int local_attention_fwd_lse(int dtype, const void* q,
+                                       const void* k, const void* v,
+                                       const int* lengths, void* out,
+                                       float* lse, int B, int T, int H, int D,
+                                       int chunk, long long q_sb,
+                                       long long q_st, long long q_sh,
+                                       long long k_sb, long long k_st,
+                                       long long k_sh, long long v_sb,
+                                       long long v_st, long long v_sh,
+                                       float scale, void* stream) {
+  const long long qs[3] = {q_sb, q_st, q_sh};
+  const long long ks[3] = {k_sb, k_st, k_sh};
+  const long long vs[3] = {v_sb, v_st, v_sh};
+  return dispatch<true>(dtype, q, k, v, lengths, out, lse, B, T, H, D, chunk,
+                        qs, ks, vs, scale, stream);
 }

@@ -1,9 +1,12 @@
-"""Fused AdaIN -> SiLU -> dilated conv: the CUDA kernel's wrapper, its plain
-version and the decoder block built from two passes.
+"""Fused AdaIN -> SiLU -> dilated conv: the CUDA kernels' wrappers, their
+plain versions and the decoder block built from two passes, with its
+backward.
 
 Port of ``styletts_zs_tpu/kernels/decoder_kernels.py::_mod_conv_kernel``
-(``_mod_conv_pass``, ``adain_conv_block_pallas``).  The kernel is
-``csrc/adain_conv.cu``.  One pass, for x (B, T, C), scale/shift (B, T, C)
+(``_mod_conv_pass``, ``adain_conv_block_pallas``; row 6, kernel
+``csrc/adain_conv.cu``) and of ``_bwd_data_kernel`` (``_bwd_data_mod_pass``
+in ``adain_conv_block_bwd_pallas``; row 7, kernel
+``csrc/adain_conv_bwd.cu``).  One pass, for x (B, T, C), scale/shift (B, T, C)
 or (B, C), the instance statistics mean/rstd (B, C) of x and a weight
 (K, C, C_out) in the JAX layout:
 
@@ -16,6 +19,17 @@ with dilation 1, then ``(x + h2) / sqrt(2)`` in fp32 rounded to x's dtype
 (h2 is rounded to x's dtype first, as JAX's block rounds it).  The
 statistics are fp32 ``torch.var_mean`` over T, as JAX takes them in XLA
 outside the Pallas kernel (``_instance_stats``).
+
+Backward of a pass (row 7 and the PyTorch steps around it, which JAX keeps
+in XLA, ``decoder_kernels.py:292-313``): from the cotangent dc of its conv
+output, dh = conv_bwd_data(dc, w) * silu'(u), u = (x - mean) * rstd *
+(1 + scale) + shift recomputed from the saved statistics (row 7); then the
+instance-norm backward gives dx, dscale, dshift (``_norm_bwd``) and the
+weight gradient is K fp32 products of the SiLU output with dc
+(``_conv_wgrad``).  ``AdaINConvBlock`` is the block's
+``torch.autograd.Function``: row 6's two passes forward, saving
+(x, scale, shift, k1, k2, h, mean_x, rstd_x, mean_h, rstd_h), and that
+backward, as ``adain_conv_block_fwd_pallas``/``_bwd_pallas`` pair them.
 """
 from __future__ import annotations
 
@@ -25,7 +39,9 @@ import torch.nn.functional as F
 
 from styletts_zs_torch.kernels import build, plain
 
-launches = 0   # CUDA kernel launches; ``adain_conv_pass_cuda`` adds one each
+# CUDA kernel launches, one added by each wrapper where it launches
+launches = 0             # row 6, ``adain_conv_pass_cuda``
+bwd_data_launches = 0    # row 7, ``adain_conv_bwd_data_cuda``
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -70,18 +86,8 @@ def _rows_aligned(t: torch.Tensor) -> bool:
     return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:-1])
 
 
-def adain_conv_pass_cuda(x, scale, shift, mean, rstd, w, *,
-                         dilation: int) -> torch.Tensor:
-    """Launch ``csrc/adain_conv.cu`` on the current stream.
-
-    x (B, T, C) and scale/shift (B, T, C) or (B, C): CUDA tensors of one
-    dtype (fp32 or bf16) with a contiguous channel dimension and any other
-    strides, so the scale/shift views of the decoder's style projection go
-    in without a copy (bf16: 16-byte aligned rows and C, C_out multiples of
-    8); mean/rstd (B, C) fp32; w (K, C, C_out), cast to x's dtype.  K odd
-    and (K-1)*dilation even.  Raises on anything else.
-    """
-    global launches
+def _check_pass(x, scale, shift, mean, rstd, w, dilation: int) -> None:
+    """Raise on what the pass kernels (rows 6 and 7) do not take."""
     B, T, C = x.shape
     K, _, C_out = w.shape
     if not x.is_cuda or x.dtype not in _DTYPES:
@@ -107,21 +113,54 @@ def adain_conv_pass_cuda(x, scale, shift, mean, rstd, w, *,
         if s.shape != (B, C) or s.dtype != torch.float32 or \
                 s.device != x.device:
             raise ValueError(f"{name}: need (B, C) fp32 on x's device")
+
+
+def _bt_strides(s):
+    """(b, t) strides of a (B, T, C) tensor or a (B, C) one (t stride 0)."""
+    return s.stride(0), (s.stride(1) if s.ndim == 3 else 0)
+
+
+def adain_conv_pass_cuda(x, scale, shift, mean, rstd, w, *,
+                         dilation: int) -> torch.Tensor:
+    """Launch ``csrc/adain_conv.cu`` on the current stream.
+
+    x (B, T, C) and scale/shift (B, T, C) or (B, C): CUDA tensors of one
+    dtype (fp32 or bf16) with a contiguous channel dimension and any other
+    strides, so the scale/shift views of the decoder's style projection go
+    in without a copy (bf16: 16-byte aligned rows and C, C_out multiples of
+    8); mean/rstd (B, C) fp32; w (K, C, C_out), cast to x's dtype.  K odd
+    and (K-1)*dilation even.  Raises on anything else.
+    """
+    global launches
+    B, T, C = x.shape
+    K, _, C_out = w.shape
+    _check_pass(x, scale, shift, mean, rstd, w, dilation)
     mean, rstd = mean.contiguous(), rstd.contiguous()
     wt = w.to(x.dtype).contiguous()
-
-    def strides(s):
-        return s.stride(0), (s.stride(1) if s.ndim == 3 else 0)
-
     out = torch.empty(B, T, C_out, dtype=x.dtype, device=x.device)
     rc = build.library().lib.adain_conv_fwd(
         _DTYPES[x.dtype], x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
         mean.data_ptr(), rstd.data_ptr(), wt.data_ptr(), out.data_ptr(),
-        B, T, C, C_out, K, dilation, *strides(x), *strides(scale),
-        *strides(shift), torch.cuda.current_stream(x.device).cuda_stream)
+        B, T, C, C_out, K, dilation, *_bt_strides(x), *_bt_strides(scale),
+        *_bt_strides(shift), torch.cuda.current_stream(x.device).cuda_stream)
     build.check(rc, "adain_conv_fwd")
     launches += 1
     return out
+
+
+def _block_forward(x, scale, shift, kernel1, kernel2, *, dilation: int,
+                   conv_pass):
+    """(y, residuals): the block and what its backward needs."""
+    C = x.shape[-1]
+    mean_x, rstd_x = instance_stats(x)
+    h = conv_pass(x, scale[..., :C], shift[..., :C], mean_x, rstd_x, kernel1,
+                  dilation=dilation)
+    mean_h, rstd_h = instance_stats(h)
+    h2 = conv_pass(h, scale[..., C:], shift[..., C:], mean_h, rstd_h, kernel2,
+                   dilation=1)
+    y = ((x.float() + h2.float()) * np.float32(1.0 / np.sqrt(2.0))).to(x.dtype)
+    return y, (x, scale, shift, kernel1, kernel2, h, mean_x, rstd_x, mean_h,
+               rstd_h)
 
 
 def adain_conv_block(x, scale, shift, kernel1, kernel2, *, dilation: int,
@@ -129,10 +168,144 @@ def adain_conv_block(x, scale, shift, kernel1, kernel2, *, dilation: int,
     """(x + pass2(pass1(x))) / sqrt(2); ``conv_pass`` is the kernel's
     wrapper or its plain version.  scale/shift are (B, T, 2C) or (B, 2C):
     channels [0, C) for pass 1, [C, 2C) for pass 2, taken as views."""
-    C = x.shape[-1]
-    h = conv_pass(x, scale[..., :C], shift[..., :C], *instance_stats(x),
-                  kernel1, dilation=dilation)
-    h2 = conv_pass(h, scale[..., C:], shift[..., C:], *instance_stats(h),
-                   kernel2, dilation=1)
-    return ((x.float() + h2.float())
-            * np.float32(1.0 / np.sqrt(2.0))).to(x.dtype)
+    return _block_forward(x, scale, shift, kernel1, kernel2,
+                          dilation=dilation, conv_pass=conv_pass)[0]
+
+
+# ---------------------------------------------------------------------------
+# backward (row 7 and the steps JAX keeps in XLA)
+# ---------------------------------------------------------------------------
+
+def _dsilu(x, scale, shift, mean, rstd):
+    """silu'(u) of the pass's pre-activation u, fp32 (Pallas's steps)."""
+    if scale.ndim == 2:
+        scale, shift = scale[:, None], shift[:, None]
+    u = ((x.float() - mean[:, None]) * rstd[:, None] * (1.0 + scale.float())
+         + shift.float())
+    sig = torch.sigmoid(u)
+    return sig * (1.0 + u * (1.0 - sig))
+
+
+def adain_conv_bwd_data_plain(dc, x, scale, shift, mean, rstd, w, *,
+                              dilation: int) -> torch.Tensor:
+    """Plain PyTorch version of row 7: the conv's backward-data over the
+    flipped, transposed taps as K shifted products summed in fp32, times
+    silu'(u), in dc's dtype."""
+    plain.note("adain_conv_bwd_data", dc)
+    K = w.shape[0]
+    halo = (K - 1) * dilation // 2
+    wb = w.to(dc.dtype).flip(0).transpose(1, 2).float()     # (K, C_out, C)
+    dcf = dc.float()
+    da = sum(shifted(dcf, k * dilation - halo) @ wb[k] for k in range(K))
+    return (da * _dsilu(x, scale, shift, mean, rstd)).to(dc.dtype)
+
+
+def adain_conv_bwd_data_cuda(dc, x, scale, shift, mean, rstd, w, *,
+                             dilation: int) -> torch.Tensor:
+    """Launch row 7 (``csrc/adain_conv_bwd.cu``) on the current stream.
+
+    dc (B, T, C_out), made contiguous; x, scale, shift, mean, rstd and w as
+    ``adain_conv_pass_cuda`` takes them (w (K, C, C_out) read flipped and
+    transposed in place).  Returns dh (B, T, C) in dc's dtype.  Raises on
+    anything the kernel does not take.
+    """
+    global bwd_data_launches
+    B, T, C = x.shape
+    K, _, C_out = w.shape
+    _check_pass(x, scale, shift, mean, rstd, w, dilation)
+    dc = dc.contiguous()
+    if dc.shape != (B, T, C_out) or dc.dtype != x.dtype or \
+            dc.device != x.device:
+        raise ValueError(f"dc: need (B, T, C_out) like x, got {dc.dtype} "
+                         f"{tuple(dc.shape)}")
+    if dc.dtype == torch.bfloat16 and dc.data_ptr() % 16:
+        raise ValueError("bf16 dc must be 16-byte aligned")
+    mean, rstd = mean.contiguous(), rstd.contiguous()
+    wt = w.to(x.dtype).contiguous()
+    out = torch.empty(B, T, C, dtype=x.dtype, device=x.device)
+    rc = build.library().lib.adain_conv_bwd_data(
+        _DTYPES[x.dtype], dc.data_ptr(), x.data_ptr(), scale.data_ptr(),
+        shift.data_ptr(), mean.data_ptr(), rstd.data_ptr(), wt.data_ptr(),
+        out.data_ptr(), B, T, C, C_out, K, dilation, *_bt_strides(x),
+        *_bt_strides(scale), *_bt_strides(shift),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(rc, "adain_conv_bwd_data")
+    bwd_data_launches += 1
+    return out
+
+
+def _norm_bwd(dh, x, s, mean, rstd):
+    """Instance norm + modulation backward: (dx, dscale, dshift, n), fp32."""
+    if s.ndim == 2:
+        s = s[:, None]
+    n = (x.float() - mean[:, None]) * rstd[:, None]
+    dhf = dh.float()
+    dn = dhf * (1.0 + s.float())
+    m1 = dn.mean(dim=1, keepdim=True)
+    m2 = (dn * n).mean(dim=1, keepdim=True)
+    return rstd[:, None] * (dn - m1 - n * m2), dhf * n, dhf, n
+
+
+def _silu_act(n, s, b):
+    """The pass's SiLU output from the normalised input, fp32."""
+    if s.ndim == 2:
+        s, b = s[:, None], b[:, None]
+    u = n * (1.0 + s.float()) + b.float()
+    return u * torch.sigmoid(u)
+
+
+def _conv_wgrad(a, dc, K: int, dilation: int) -> torch.Tensor:
+    """dW[k] = sum_{b,t} a[b, t + k d - halo] (x) dc[b, t]: K fp32 products."""
+    halo = (K - 1) * dilation // 2
+    T = dc.shape[1]
+    ap = F.pad(a, (0, 0, halo, halo))
+    dcf = dc.float()
+    return torch.stack([torch.einsum("btc,btd->cd",
+                                     ap[:, k * dilation:k * dilation + T], dcf)
+                        for k in range(K)])
+
+
+def _sum_global(d, like):
+    """A global (B, C) style's gradient: the per-frame one summed over T."""
+    return d.sum(dim=1) if like.ndim == 2 else d
+
+
+class AdaINConvBlock(torch.autograd.Function):
+    """The decoder block with row 7 in its backward.  ``conv_pass`` and
+    ``bwd_data`` are row 6's and row 7's wrappers, or their plain versions
+    (the caller picks by device)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, shift, kernel1, kernel2, dilation, conv_pass,
+                bwd_data):
+        y, res = _block_forward(x, scale, shift, kernel1, kernel2,
+                                dilation=dilation, conv_pass=conv_pass)
+        ctx.save_for_backward(*res)
+        ctx.dilation, ctx.bwd_data = dilation, bwd_data
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, shift, k1, k2, h, mean_x, rstd_x, mean_h, rstd_h = \
+            ctx.saved_tensors
+        C = x.shape[-1]
+        s1, s2 = scale[..., :C], scale[..., C:]
+        b1, b2 = shift[..., :C], shift[..., C:]
+        inv_sqrt2 = np.float32(1.0 / np.sqrt(2.0))
+        dc2 = (g.float() * inv_sqrt2).to(g.dtype)
+        # pass 2 (dilation 1): dh2 -> dc1, ds2, db2, dW2
+        dh2 = ctx.bwd_data(dc2, h, s2, b2, mean_h, rstd_h, k2, dilation=1)
+        dc1_f, ds2, db2, n_h = _norm_bwd(dh2, h, s2, mean_h, rstd_h)
+        dc1 = dc1_f.to(g.dtype)
+        dW2 = _conv_wgrad(_silu_act(n_h, s2, b2), dc2, k2.shape[0], 1)
+        # pass 1 (dilated): dh1 -> dx, ds1, db1, dW1
+        dh1 = ctx.bwd_data(dc1, x, s1, b1, mean_x, rstd_x, k1,
+                           dilation=ctx.dilation)
+        dx_n, ds1, db1, n_x = _norm_bwd(dh1, x, s1, mean_x, rstd_x)
+        dW1 = _conv_wgrad(_silu_act(n_x, s1, b1), dc1, k1.shape[0],
+                          ctx.dilation)
+        dx = (g.float() * inv_sqrt2 + dx_n).to(x.dtype)
+        dscale = _sum_global(torch.cat([ds1, ds2], dim=-1), scale)
+        dshift = _sum_global(torch.cat([db1, db2], dim=-1), shift)
+        return (dx, dscale.to(scale.dtype), dshift.to(shift.dtype),
+                dW1.to(k1.dtype), dW2.to(k2.dtype), None, None, None)

@@ -36,6 +36,22 @@ _SIGNATURES = {
     "local_attention_fwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _L, _L, _L, _L, _L, _L, _L, _L, _L,
                             ctypes.c_float, _P],
+    # the same with the lse output after out
+    "local_attention_fwd_lse": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                _I, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                                ctypes.c_float, _P],
+    # dtype, q, k, v, g, lse, delta, lengths, dq, B, T, H, D, chunk,
+    # q/k/v/g strides (b, t, h), scale, stream
+    "local_attention_bwd_dq": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                               _I, _I, _I, *[_L] * 12, ctypes.c_float, _P],
+    # the same with dk, dv in place of dq
+    "local_attention_bwd_dkv": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                _I, _I, _I, _I, *[_L] * 12, ctypes.c_float,
+                                _P],
+    # dtype, dc, x, scale, shift, mean, rstd, w, out, B, T, C, C_out, K,
+    # dilation, (b, t) strides of x, scale and shift, stream
+    "adain_conv_bwd_data": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                            _I, _I, _I, _L, _L, _L, _L, _L, _L, _P],
     # dtype, x, w, bias, syn, inv_env, out, B, T, C, K, n_fft, hop, stream
     "synthesis_head_fwd": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _I, _P],

@@ -15,6 +15,9 @@ rounded to x's dtype when ``negative_slope`` is given (the vocoder's
 activation, fused into the kernel's load), zero outside [0, T).  Each tap
 is a contiguous (Cin, Cout) slice of the weight as it is, so the kernel
 needs no reordered tap matrix and nothing is rebuilt per call.
+``ConvTranspose`` is the op's ``autograd.Function``: the kernel forward, and
+the gradient of leaky ReLU and the twin ``ops.conv.conv_transpose1d``
+backward (JAX has no backward kernel for it, ``dispatch.py:223-244``).
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import torch.nn.functional as F
 
 from styletts_zs_torch.kernels import build, plain
 from styletts_zs_torch.kernels.adain_conv import shifted
+from styletts_zs_torch.ops import conv as conv_ops
 
 launches = 0   # CUDA kernel launches; ``conv_transpose1d_cuda`` adds one each
 
@@ -87,3 +91,25 @@ def conv_transpose1d_cuda(x, kernel, *, stride: int,
     build.check(rc, "conv_transpose_fwd")
     launches += 1
     return out.transpose(1, 2)
+
+
+class ConvTranspose(torch.autograd.Function):
+    """``fwd`` (the kernel's wrapper or its plain version) forward; the
+    twin's gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, stride, negative_slope, fwd):
+        ctx.save_for_backward(x, kernel)
+        ctx.stride, ctx.slope = stride, negative_slope
+        return fwd(x, kernel, stride=stride, negative_slope=negative_slope)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, kernel = ctx.saved_tensors
+
+        def twin(x, w):
+            if ctx.slope is not None:
+                x = F.leaky_relu(x, ctx.slope)
+            return conv_ops.conv_transpose1d(x, w, stride=ctx.stride)
+        dx, dw = plain.twin_vjp("conv_transpose", twin, (x, kernel), g)
+        return dx, dw, None, None, None

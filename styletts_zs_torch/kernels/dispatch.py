@@ -12,6 +12,16 @@ raises, a CPU tensor takes the kernel's plain version (counted in
 TPU tiling limits, and there is no route by which a CUDA tensor reaches a
 plain version.  Chunk-local attention over T <= chunk is one chunk, full
 attention over the length, and goes to the full-attention op.
+
+Training: where grad is enabled and an input requires it, the ops go through
+their ``torch.autograd.Function``s.  Chunk-local attention and the AdaIN
+conv block have dedicated backward kernels, as in JAX (the forward that
+saves the log-sum-exp, row 3; dq and dk/dv, rows 4 and 5; the conv's
+backward-data with silu', row 7); full attention, the transposed conv and
+the synthesis head take their kernel forward and the gradient of their twin
+in ``ops/`` backward (counted in ``plain.twin_vjp_calls``).  Under
+``torch.inference_mode()`` or ``no_grad`` every op launches what it
+launched before.
 """
 from __future__ import annotations
 
@@ -29,7 +39,26 @@ from styletts_zs_torch.kernels import synthesis_head as head_kernel
 # counts passes, two per block).
 plain_calls = {"local_attention": 0, "synthesis_head": 0, "full_attention": 0,
                "sampler_euler": 0, "sampler_heun": 0, "adain_conv": 0,
-               "conv_transpose": 0}
+               "conv_transpose": 0, "local_attention_fwd_lse": 0,
+               "local_attention_bwd_dq": 0, "local_attention_bwd_dkv": 0,
+               "adain_conv_bwd_data": 0}
+
+
+def _route(name: str, x: torch.Tensor, cuda_fn, plain_fn):
+    """The kernel's wrapper for a CUDA tensor; for a CPU tensor its plain
+    version, counted in ``plain_calls``."""
+    if x.is_cuda:
+        return cuda_fn
+
+    def counted(*args, **kw):
+        plain_calls[name] += 1
+        return plain_fn(*args, **kw)
+    return counted
+
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
 
 
 def local_attention(q, k, v, *, chunk: int,
@@ -47,19 +76,31 @@ def local_attention(q, k, v, *, chunk: int,
         lengths = torch.full((B,), T, dtype=torch.int32, device=q.device)
     else:
         lengths = kv_mask.sum(-1, dtype=torch.int32)
-    if q.is_cuda:
-        return la_kernel.local_attention_cuda(q, k, v, lengths, chunk=chunk)
-    plain_calls["local_attention"] += 1
-    return la_kernel.local_attention_plain(q, k, v, lengths, chunk=chunk)
+    if _needs_grad(q, k, v):
+        return la_kernel.LocalAttention.apply(
+            q, k, v, lengths, chunk,
+            _route("local_attention_fwd_lse", q,
+                   la_kernel.local_attention_fwd_lse_cuda,
+                   la_kernel.local_attention_fwd_lse_plain),
+            _route("local_attention_bwd_dq", q,
+                   la_kernel.local_attention_bwd_dq_cuda,
+                   la_kernel.local_attention_bwd_dq_plain),
+            _route("local_attention_bwd_dkv", q,
+                   la_kernel.local_attention_bwd_dkv_cuda,
+                   la_kernel.local_attention_bwd_dkv_plain))
+    return _route("local_attention", q, la_kernel.local_attention_cuda,
+                  la_kernel.local_attention_plain)(q, k, v, lengths,
+                                                   chunk=chunk)
 
 
 def full_attention(q, k, v, *, kv_mask: torch.Tensor | None = None):
     """Full (cross- or self-) attention (B, Tq, H, D) x (B, Tk, H, D);
     ``kv_mask`` is any (B, Tk) key mask."""
-    if q.is_cuda:
-        return fa_kernel.full_attention_cuda(q, k, v, kv_mask)
-    plain_calls["full_attention"] += 1
-    return fa_kernel.full_attention_plain(q, k, v, kv_mask)
+    fwd = _route("full_attention", q, fa_kernel.full_attention_cuda,
+                 fa_kernel.full_attention_plain)
+    if _needs_grad(q, k, v):
+        return fa_kernel.FullAttention.apply(q, k, v, kv_mask, fwd)
+    return fwd(q, k, v, kv_mask)
 
 
 def fused_euler_step(x, den_cond, den_uncond, s_cur, s_next, *,
@@ -93,12 +134,14 @@ def adain_conv_block(x, scale, shift, kernel1, kernel2, *, dilation: int = 1):
     """AdaIN -> SiLU -> dilated conv, twice, with a (x + h)/sqrt(2) residual
     (``ac_kernel.adain_conv_block``); kernels in the JAX (K, C_in, C_out)
     layout, scale/shift (B, T, 2C) or (B, 2C), views taken as they are."""
-    if x.is_cuda:
-        conv_pass = ac_kernel.adain_conv_pass_cuda
-    else:
-        def conv_pass(*args, **kw):
-            plain_calls["adain_conv"] += 1
-            return ac_kernel.adain_conv_pass_plain(*args, **kw)
+    conv_pass = _route("adain_conv", x, ac_kernel.adain_conv_pass_cuda,
+                       ac_kernel.adain_conv_pass_plain)
+    if _needs_grad(x, scale, shift, kernel1, kernel2):
+        return ac_kernel.AdaINConvBlock.apply(
+            x, scale, shift, kernel1, kernel2, dilation, conv_pass,
+            _route("adain_conv_bwd_data", x,
+                   ac_kernel.adain_conv_bwd_data_cuda,
+                   ac_kernel.adain_conv_bwd_data_plain))
     return ac_kernel.adain_conv_block(x, scale, shift, kernel1, kernel2,
                                       dilation=dilation, conv_pass=conv_pass)
 
@@ -107,12 +150,12 @@ def conv_transpose1d(x, kernel, *, stride: int,
                      negative_slope: float | None = None):
     """Vocoder upsampling transposed conv, kernel (K, C_in, C_out), of
     ``leaky_relu(x, negative_slope)`` when a slope is given."""
-    if x.is_cuda:
-        return ct_kernel.conv_transpose1d_cuda(x, kernel, stride=stride,
-                                               negative_slope=negative_slope)
-    plain_calls["conv_transpose"] += 1
-    return ct_kernel.conv_transpose1d_plain(x, kernel, stride=stride,
-                                            negative_slope=negative_slope)
+    fwd = _route("conv_transpose", x, ct_kernel.conv_transpose1d_cuda,
+                 ct_kernel.conv_transpose1d_plain)
+    if _needs_grad(x, kernel):
+        return ct_kernel.ConvTranspose.apply(x, kernel, stride,
+                                             negative_slope, fwd)
+    return fwd(x, kernel, stride=stride, negative_slope=negative_slope)
 
 
 def synthesis_head(x, w, b, *, n_fft: int, hop: int) -> torch.Tensor:
@@ -122,7 +165,9 @@ def synthesis_head(x, w, b, *, n_fft: int, hop: int) -> torch.Tensor:
     if x.is_cuda:
         # the vocoder's convs hand over a (B, C, T)-major view; the kernel
         # reads (B, T, C) rows
-        return head_kernel.synthesis_head_cuda(x.contiguous(), w, b,
-                                               n_fft=n_fft, hop=hop)
-    plain_calls["synthesis_head"] += 1
-    return head_kernel.synthesis_head_plain(x, w, b, n_fft=n_fft, hop=hop)
+        x = x.contiguous()
+    fwd = _route("synthesis_head", x, head_kernel.synthesis_head_cuda,
+                 head_kernel.synthesis_head_plain)
+    if _needs_grad(x, w, b):
+        return head_kernel.SynthesisHead.apply(x, w, b, n_fft, hop, fwd)
+    return fwd(x, w, b, n_fft=n_fft, hop=hop)

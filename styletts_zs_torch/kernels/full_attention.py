@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from styletts_zs_torch.kernels import build, plain
+from styletts_zs_torch.ops import attention as attn_ops
 from styletts_zs_torch.ops.attention import NEG_INF
 
 launches = 0   # CUDA kernel launches; ``full_attention_cuda`` adds one each
@@ -90,3 +91,22 @@ def full_attention_cuda(q, k, v, mask=None) -> torch.Tensor:
     build.check(rc, "full_attention_fwd")
     launches += 1
     return out
+
+
+class FullAttention(torch.autograd.Function):
+    """``fwd`` (the kernel's wrapper or its plain version) forward; the
+    twin's gradient backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, fwd):
+        ctx.save_for_backward(q, k, v, mask)
+        return fwd(q, k, v, mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, mask = ctx.saved_tensors
+        dq, dk, dv = plain.twin_vjp(
+            "full_attention",
+            lambda q, k, v: attn_ops.cross_attention(q, k, v, kv_mask=mask),
+            (q, k, v), g)
+        return dq, dk, dv, None, None

@@ -1,9 +1,14 @@
-"""Chunk-local attention: the CUDA kernel's wrapper and its plain version.
+"""Chunk-local attention: the CUDA kernels' wrappers and their plain versions.
 
 Port of ``styletts_zs_tpu/kernels/attention_kernel.py::_local_attn_kernel``
-(``local_attention_pallas``).  The kernel is ``csrc/local_attention.cu``.
-Both functions here take (B, T, H, D) q/k/v and (B,) int32 key lengths and
-compute the Pallas kernel's function, at every T the XLA twin takes: the
+(``local_attention_pallas``; row 1) and of its training kernels, the forward
+that also saves each query's log-sum-exp (``_local_attn_fwd_lse_kernel``,
+row 3) and the flash-style backward (``_local_attn_bwd_dq_kernel`` and
+``_local_attn_bwd_dkv_kernel``, rows 4 and 5; ``local_attention_bwd_pallas``).
+The kernels are ``csrc/local_attention.cu`` (rows 1 and 3) and
+``csrc/local_attention_bwd.cu`` (rows 4 and 5).
+The functions here take (B, T, H, D) q/k/v and (B,) int32 key lengths;
+the forwards compute the Pallas kernel's function, at every T the XLA twin takes: the
 queries of chunk i attend to the keys of the clipped window
 [s0, s0 + W), W = min(3c, T), s0 = clip((i-1)c, 0, T-W), that lie in the
 band [(i-1)c, (i+2)c) and below the length.  T > c must be a multiple of
@@ -13,6 +18,14 @@ kernel on the card.  A query with no valid key averages its clipped window
 uniformly (the Pallas kernel's behaviour; the XLA twin in
 ``ops.attention`` averages zero-padded neighbours instead — the decoder
 zeroes such rows, so valid rows never depend on it).
+
+The backward, from the cotangent g and delta = sum_d g * out (B, H, T),
+recomputes p = exp(s - lse) with the saved lse (B, H, T) fp32: dq over each
+query chunk's window, dk and dv over the query chunks j-1..j+1 of each key
+chunk j, where only the length masks a key.  A query with no valid key has
+lse = -1e30, so its p is 1 on every masked key (the Pallas function; its
+cotangent is zero in the decoder).  p and dS are rounded to the input dtype
+before their products, as in the Pallas kernels.
 """
 from __future__ import annotations
 
@@ -21,14 +34,18 @@ import torch
 from styletts_zs_torch.kernels import build, plain
 from styletts_zs_torch.ops.attention import NEG_INF
 
-launches = 0   # CUDA kernel launches; ``local_attention_cuda`` adds one each
+# CUDA kernel launches, one added by each wrapper where it launches
+launches = 0           # row 1, ``local_attention_cuda``
+fwd_lse_launches = 0   # row 3, ``local_attention_fwd_lse_cuda``
+bwd_dq_launches = 0    # row 4, ``local_attention_bwd_dq_cuda``
+bwd_dkv_launches = 0   # row 5, ``local_attention_bwd_dkv_cuda``
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def local_attention_plain(q, k, v, lengths, *, chunk: int) -> torch.Tensor:
-    """Plain PyTorch version of the kernel (same function, fp32 softmax)."""
-    plain.note("local_attention", q)
+def _window(q, k, lengths, chunk: int):
+    """fp32 logits of every query chunk over its clipped window, masked keys
+    at ``NEG_INF``: (logits (B, n, H, c, W), window key indices (n, W))."""
     B, T, H, D = q.shape
     if T > chunk and T % chunk:        # the XLA twin raises there too
         raise ValueError(f"T={T} not a multiple of chunk={chunk}")
@@ -40,28 +57,97 @@ def local_attention_plain(q, k, v, lengths, *, chunk: int) -> torch.Tensor:
     key = s0[:, None] + torch.arange(W, device=q.device)           # (n, W)
     band = (key >= ((ci - 1) * chunk)[:, None]) & (key < ((ci + 2) * chunk)[:, None])
     valid = band[None] & (key[None] < lengths[:, None, None])       # (B, n, W)
-    kw = k[:, key].float()                                          # (B, n, W, H, D)
-    vw = v[:, key]
     logits = torch.einsum("bnqhd,bnkhd->bnhqk",
-                          q.reshape(B, n, chunk, H, D).float(), kw) * D ** -0.5
-    logits = logits.masked_fill(~valid[:, :, None, None, :], NEG_INF)
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bnhqk,bnkhd->bnqhd", probs.to(v.dtype).float(),
-                       vw.float())
-    return out.reshape(B, T, H, D).to(q.dtype)
+                          q.reshape(B, n, chunk, H, D).float(),
+                          k[:, key].float()) * D ** -0.5
+    return logits.masked_fill(~valid[:, :, None, None, :], NEG_INF), key
 
 
-def local_attention_cuda(q, k, v, lengths, *, chunk: int) -> torch.Tensor:
-    """Launch ``csrc/local_attention.cu`` on the current stream.
-
-    q/k/v: (B, T, H, D) CUDA tensors of one dtype (fp32 or bf16), last
-    dimension contiguous, any strides elsewhere; lengths (B,) int32.  The
-    kernel takes D = 64, chunk % 64 == 0 and T >= 2c (a multiple of c), and
-    raises on anything else.
-    """
-    global launches
+def _attend(q, k, v, lengths, chunk: int):
+    """(out, lse (B, H, T) fp32): the Pallas kernels' steps."""
     B, T, H, D = q.shape
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    logits, key = _window(q, k, lengths, chunk)
+    m = logits.amax(dim=-1, keepdim=True)
+    e = torch.exp(logits - m)
+    denom = torch.clamp(e.sum(dim=-1, keepdim=True), min=1e-30)
+    out = torch.einsum("bnhqk,bnkhd->bnqhd", (e / denom).to(v.dtype).float(),
+                       v[:, key].float())
+    lse = (m + torch.log(denom))[..., 0]                            # (B, n, H, c)
+    return (out.reshape(B, T, H, D).to(q.dtype),
+            lse.permute(0, 2, 1, 3).reshape(B, H, T))
+
+
+def local_attention_plain(q, k, v, lengths, *, chunk: int) -> torch.Tensor:
+    """Plain PyTorch version of row 1 (same function, fp32 softmax)."""
+    plain.note("local_attention", q)
+    return _attend(q, k, v, lengths, chunk)[0]
+
+
+def local_attention_fwd_lse_plain(q, k, v, lengths, *, chunk: int):
+    """Plain PyTorch version of row 3: (out, lse (B, H, T) fp32)."""
+    plain.note("local_attention_fwd_lse", q)
+    return _attend(q, k, v, lengths, chunk)
+
+
+def _per_chunk(stat, n: int):
+    """(B, H, T) statistics -> (B, n, H, c, 1), the logits' layout."""
+    B, H, T = stat.shape
+    return stat.reshape(B, H, n, T // n).permute(0, 2, 1, 3)[..., None]
+
+
+def local_attention_bwd_dq_plain(q, k, v, g, lse, delta, lengths, *,
+                                 chunk: int) -> torch.Tensor:
+    """Plain PyTorch version of row 4: dq over each query chunk's window."""
+    plain.note("local_attention_bwd_dq", q)
+    B, T, H, D = q.shape
+    logits, key = _window(q, k, lengths, chunk)
+    n = logits.shape[1]
+    p = torch.exp(logits - _per_chunk(lse, n))
+    dp = torch.einsum("bnqhd,bnkhd->bnhqk",
+                      g.reshape(B, n, T // n, H, D).float(), v[:, key].float())
+    ds = p * (dp - _per_chunk(delta, n))
+    dq = torch.einsum("bnhqk,bnkhd->bnqhd", ds.to(q.dtype).float(),
+                      k[:, key].float()) * D ** -0.5
+    return dq.reshape(B, T, H, D).to(q.dtype)
+
+
+def local_attention_bwd_dkv_plain(q, k, v, g, lse, delta, lengths, *,
+                                  chunk: int):
+    """Plain PyTorch version of row 5: (dk, dv), each key chunk j over the
+    query chunks j-1..j+1 inside [0, n), keys masked by the length only."""
+    plain.note("local_attention_bwd_dkv", q)
+    B, T, H, D = q.shape
+    if T < 2 * chunk or T % chunk:
+        raise ValueError(f"the backward takes T a multiple of chunk and at "
+                         f"least 2 chunks, got T={T} chunk={chunk}")
+    n = T // chunk
+    dev = q.device
+    iq = torch.arange(n, device=dev)[:, None] + torch.arange(-1, 2, device=dev)
+    ok = ((iq >= 0) & (iq < n))[..., None].expand(n, 3, chunk).reshape(n, -1)
+    qidx = (iq.clamp(0, n - 1)[..., None] * chunk
+            + torch.arange(chunk, device=dev)).reshape(n, 3 * chunk)
+    kj = k.reshape(B, n, chunk, H, D).float()
+    vj = v.reshape(B, n, chunk, H, D).float()
+    qw, gw = q[:, qidx].float(), g[:, qidx].float()           # (B, n, 3c, H, D)
+    key_valid = torch.arange(T, device=dev).reshape(n, chunk)[None] \
+        < lengths[:, None, None]                               # (B, n, c)
+    s = torch.einsum("bnqhd,bnkhd->bnhqk", qw, kj) * D ** -0.5
+    s = s.masked_fill(~key_valid[:, :, None, None, :], NEG_INF)
+    lse_w = lse[:, :, qidx].permute(0, 2, 1, 3)[..., None]     # (B, n, H, 3c, 1)
+    delta_w = delta[:, :, qidx].permute(0, 2, 1, 3)[..., None]
+    w = ok[None, :, None, :, None].float()
+    p = torch.exp(s - lse_w) * w
+    ds = p * (torch.einsum("bnqhd,bnkhd->bnhqk", gw, vj) - delta_w)
+    dk = torch.einsum("bnhqk,bnqhd->bnkhd", ds.to(q.dtype).float(),
+                      qw) * D ** -0.5
+    dv = torch.einsum("bnhqk,bnqhd->bnkhd", p.to(q.dtype).float(), gw)
+    return (dk.reshape(B, T, H, D).to(k.dtype),
+            dv.reshape(B, T, H, D).to(v.dtype))
+
+
+def _check_inputs(q, k, v, lengths, chunk: int, *more):
+    B, T, H, D = q.shape
+    for name, t in (("q", q), ("k", k), ("v", v), *more):
         if not t.is_cuda or t.dtype != q.dtype or t.shape != q.shape:
             raise ValueError(f"{name}: need a CUDA tensor like q, got "
                              f"{t.device} {t.dtype} {tuple(t.shape)}")
@@ -76,16 +162,129 @@ def local_attention_cuda(q, k, v, lengths, *, chunk: int) -> torch.Tensor:
     if lengths.shape != (B,) or lengths.dtype != torch.int32 or \
             lengths.device != q.device:
         raise ValueError("lengths must be (B,) int32 on q's device")
-    lengths = lengths.contiguous()
+    return lengths.contiguous()
+
+
+def _strides(*ts):
+    return [s for t in ts for s in t.stride()[:3]]
+
+
+def local_attention_cuda(q, k, v, lengths, *, chunk: int) -> torch.Tensor:
+    """Launch row 1 (``csrc/local_attention.cu``) on the current stream.
+
+    q/k/v: (B, T, H, D) CUDA tensors of one dtype (fp32 or bf16), last
+    dimension contiguous, any strides elsewhere; lengths (B,) int32.  The
+    kernel takes D = 64, chunk % 64 == 0 and T >= 2c (a multiple of c), and
+    raises on anything else.
+    """
+    global launches
+    lengths = _check_inputs(q, k, v, lengths, chunk)
+    B, T, H, D = q.shape
     out = torch.empty(B, T, H, D, dtype=q.dtype, device=q.device)
-    lib = build.library().lib
-    rc = lib.local_attention_fwd(
+    rc = build.library().lib.local_attention_fwd(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         lengths.data_ptr(), out.data_ptr(), B, T, H, D, chunk,
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        D ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+        *_strides(q, k, v), D ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "local_attention_fwd")
     launches += 1
     return out
+
+
+def local_attention_fwd_lse_cuda(q, k, v, lengths, *, chunk: int):
+    """Launch row 3 (``csrc/local_attention.cu``, ``local_attention_fwd_lse``):
+    row 1's output and each query's log-sum-exp, (out, lse (B, H, T) fp32).
+    Takes what ``local_attention_cuda`` takes."""
+    global fwd_lse_launches
+    lengths = _check_inputs(q, k, v, lengths, chunk)
+    B, T, H, D = q.shape
+    out = torch.empty(B, T, H, D, dtype=q.dtype, device=q.device)
+    lse = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
+    rc = build.library().lib.local_attention_fwd_lse(
+        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(), lse.data_ptr(), B, T, H, D, chunk,
+        *_strides(q, k, v), D ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(rc, "local_attention_fwd_lse")
+    fwd_lse_launches += 1
+    return out, lse
+
+
+def _check_bwd(q, k, v, g, lse, delta, lengths, chunk: int):
+    lengths = _check_inputs(q, k, v, lengths, chunk, ("g", g))
+    B, T, H, _ = q.shape
+    for name, s in (("lse", lse), ("delta", delta)):
+        if s.shape != (B, H, T) or s.dtype != torch.float32 or \
+                s.device != q.device or not s.is_contiguous():
+            raise ValueError(f"{name}: need contiguous (B, H, T) fp32 on q's "
+                             f"device")
+    if q.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])
+            for t in (q, k, v, g)):
+        raise ValueError("bf16 needs 16-byte aligned q/k/v/g with strides in "
+                         "multiples of 8")
+    return lengths
+
+
+def local_attention_bwd_dq_cuda(q, k, v, g, lse, delta, lengths, *,
+                                chunk: int) -> torch.Tensor:
+    """Launch row 4 (``csrc/local_attention_bwd.cu``): dq, contiguous
+    (B, T, H, D).  q/k/v/g as ``local_attention_cuda`` takes q/k/v (bf16:
+    16-byte aligned, strides in multiples of 8); lse and delta contiguous
+    (B, H, T) fp32.  Raises on anything else."""
+    global bwd_dq_launches
+    lengths = _check_bwd(q, k, v, g, lse, delta, lengths, chunk)
+    B, T, H, D = q.shape
+    dq = torch.empty(B, T, H, D, dtype=q.dtype, device=q.device)
+    rc = build.library().lib.local_attention_bwd_dq(
+        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        g.data_ptr(), lse.data_ptr(), delta.data_ptr(), lengths.data_ptr(),
+        dq.data_ptr(), B, T, H, D, chunk, *_strides(q, k, v, g), D ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(rc, "local_attention_bwd_dq")
+    bwd_dq_launches += 1
+    return dq
+
+
+def local_attention_bwd_dkv_cuda(q, k, v, g, lse, delta, lengths, *,
+                                 chunk: int):
+    """Launch row 5 (``csrc/local_attention_bwd.cu``): (dk, dv), contiguous
+    (B, T, H, D); takes what ``local_attention_bwd_dq_cuda`` takes."""
+    global bwd_dkv_launches
+    lengths = _check_bwd(q, k, v, g, lse, delta, lengths, chunk)
+    B, T, H, D = q.shape
+    dk = torch.empty(B, T, H, D, dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    rc = build.library().lib.local_attention_bwd_dkv(
+        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        g.data_ptr(), lse.data_ptr(), delta.data_ptr(), lengths.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, T, H, D, chunk,
+        *_strides(q, k, v, g), D ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(rc, "local_attention_bwd_dkv")
+    bwd_dkv_launches += 1
+    return dk, dv
+
+
+class LocalAttention(torch.autograd.Function):
+    """Chunk-local attention with the flash-style backward: row 3 forward,
+    rows 4 and 5 backward.  ``fwd_lse``, ``bwd_dq`` and ``bwd_dkv`` are the
+    kernels' wrappers or their plain versions (the caller picks by device);
+    delta = sum_d g * out is a PyTorch reduction, as JAX leaves it to XLA
+    (``attention_kernel.py:400``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lengths, chunk, fwd_lse, bwd_dq, bwd_dkv):
+        out, lse = fwd_lse(q, k, v, lengths, chunk=chunk)
+        ctx.save_for_backward(q, k, v, out, lse, lengths)
+        ctx.chunk, ctx.bwd_dq, ctx.bwd_dkv = chunk, bwd_dq, bwd_dkv
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse, lengths = ctx.saved_tensors
+        g = g.contiguous()
+        delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        dq = ctx.bwd_dq(q, k, v, g, lse, delta, lengths, chunk=ctx.chunk)
+        dk, dv = ctx.bwd_dkv(q, k, v, g, lse, delta, lengths, chunk=ctx.chunk)
+        return dq, dk, dv, None, None, None, None, None

@@ -6,7 +6,9 @@ Function: leaky_relu(0.1) -> K-tap SAME conv + bias, each rounded to the
 compute dtype -> fp32 magnitude exp(clip(logmag, -12, 6)) and unit phase ->
 centred iSTFT overlap-add (window n_fft, hop) normalised by the squared
 window envelope.  x (B, T, C), w (K, C, 3*n_freq), b (3*n_freq,) ->
-(B, (T-1)*hop) fp32.
+(B, (T-1)*hop) fp32.  ``SynthesisHead`` is the op's ``autograd.Function``:
+the kernel forward, and the gradient of the twin's composition backward
+(JAX has no backward kernel for it, ``dispatch.py:314-333``).
 """
 from __future__ import annotations
 
@@ -36,10 +38,10 @@ def supported(*, n_fft: int, hop: int, K: int, dtype=None) -> bool:
     return (n_fft - 1) // hop + 1 <= P and K % 2 == 1 and n_fft // 2 + 1 <= 64
 
 
-def synthesis_head_plain(x, w, b, *, n_fft: int, hop: int) -> torch.Tensor:
-    """Plain PyTorch version: the op composition of the JAX twin
-    (``dispatch._synthesis_head_xla``)."""
-    plain.note("synthesis_head", x)
+def head_composition(x, w, b, *, n_fft: int, hop: int) -> torch.Tensor:
+    """The JAX twin's op composition (``dispatch._synthesis_head_xla``):
+    leaky ReLU, the head conv + bias, the fp32 mag/phase epilogue and
+    ``ops.stft.istft``."""
     n_freq = n_fft // 2 + 1
     h = torch.where(x >= 0, x, x * torch.tensor(0.1, dtype=x.dtype))
     head = conv_ops.conv1d(h, w.to(x.dtype)) + b.to(x.dtype)
@@ -48,6 +50,12 @@ def synthesis_head_plain(x, w, b, *, n_fft: int, hop: int) -> torch.Tensor:
     norm = torch.rsqrt(pc * pc + ps * ps + 1e-7)
     cfg = AudioConfig(n_fft=n_fft, win_length=n_fft, hop_length=hop)
     return stft_ops.istft(mag * pc * norm, mag * ps * norm, cfg)
+
+
+def synthesis_head_plain(x, w, b, *, n_fft: int, hop: int) -> torch.Tensor:
+    """Plain PyTorch version: the twin's composition."""
+    plain.note("synthesis_head", x)
+    return head_composition(x, w, b, n_fft=n_fft, hop=hop)
 
 
 @functools.lru_cache(maxsize=16)
@@ -90,3 +98,24 @@ def synthesis_head_cuda(x, w, b, *, n_fft: int, hop: int) -> torch.Tensor:
     build.check(rc, "synthesis_head_fwd")
     launches += 1
     return out
+
+
+class SynthesisHead(torch.autograd.Function):
+    """``fwd`` (the kernel's wrapper or its plain version) forward; the
+    twin's gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, n_fft, hop, fwd):
+        ctx.save_for_backward(x, w, b)
+        ctx.n_fft, ctx.hop = n_fft, hop
+        return fwd(x, w, b, n_fft=n_fft, hop=hop)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, b = ctx.saved_tensors
+        dx, dw, db = plain.twin_vjp(
+            "synthesis_head",
+            lambda x, w, b: head_composition(x, w, b, n_fft=ctx.n_fft,
+                                             hop=ctx.hop),
+            (x, w, b), g)
+        return dx, dw, db, None, None, None

@@ -6,7 +6,10 @@ Flax parameter path is a ``state_dict`` key after ``pipelines/convert.py``
 renames the leaf and reorders its axes.  As in Flax, each layer computes in
 the dtype of its parameters and casts its input to it; LayerNorm takes its
 statistics in fp32 with eps 1e-6 (Flax's default); GELU is the tanh form
-(``jax.nn.gelu``'s default).
+(``jax.nn.gelu``'s default).  Dropout, where JAX's modules have it, draws
+its Bernoulli masks from an explicit ``torch.Generator`` handed down the
+forward calls (``rng``, JAX's ``deterministic=False`` with a dropout key);
+with ``rng=None`` it is the identity, as at inference.
 """
 from __future__ import annotations
 
@@ -19,6 +22,18 @@ from torch import nn
 from styletts_zs_torch.kernels import dispatch
 from styletts_zs_torch.ops import conv as conv_ops
 from styletts_zs_torch.ops import norm as norm_ops
+
+
+def dropout(x: torch.Tensor, rate: float,
+            rng: torch.Generator | None) -> torch.Tensor:
+    """Flax ``nn.Dropout``: keep with probability 1 - rate and scale by
+    1 / (1 - rate), in x's dtype; the identity for ``rng=None`` or rate 0."""
+    if rng is None or rate == 0.0:
+        return x
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=rng, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
+                                                         device=x.device))
 
 
 def sinusoidal_embedding(positions: torch.Tensor, dim: int,
@@ -66,16 +81,16 @@ class Conv(nn.Module):
     layout (C_out, C_in, K)."""
 
     def __init__(self, c_in: int, c_out: int, kernel: int, *,
-                 dilation: int = 1):
+                 dilation: int = 1, stride: int = 1):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(c_out, c_in, kernel))
         self.bias = nn.Parameter(torch.empty(c_out))
-        self.dilation = dilation
+        self.dilation, self.stride = dilation, stride
 
     def forward(self, x):
         return conv_ops.conv1d_torch_weight(
             x.to(self.weight.dtype), self.weight, self.bias,
-            dilation=self.dilation)
+            dilation=self.dilation, stride=self.stride)
 
 
 class MLP(nn.Module):
@@ -130,19 +145,22 @@ class CrossAttention(nn.Module):
 
 
 class TransformerBlock(nn.Module):
-    """Pre-LN transformer block with full or chunk-local self-attention
-    (inference: dropout is the identity)."""
+    """Pre-LN transformer block with full or chunk-local self-attention,
+    dropout after the attention and after the MLP."""
 
-    def __init__(self, dim: int, n_heads: int, chunk: int | None = None):
+    def __init__(self, dim: int, n_heads: int, chunk: int | None = None,
+                 dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.LayerNorm_0 = LayerNorm(dim)
         self.SelfAttention_0 = SelfAttention(dim, n_heads, chunk=chunk)
         self.LayerNorm_1 = LayerNorm(dim)
         self.MLP_0 = MLP(dim)
 
-    def forward(self, x, *, mask=None):
-        x = x + self.SelfAttention_0(self.LayerNorm_0(x), mask=mask)
-        return x + self.MLP_0(self.LayerNorm_1(x))
+    def forward(self, x, *, mask=None, rng=None):
+        h = self.SelfAttention_0(self.LayerNorm_0(x), mask=mask)
+        x = x + dropout(h, self.dropout, rng)
+        return x + dropout(self.MLP_0(self.LayerNorm_1(x)), self.dropout, rng)
 
 
 class AdaLNTransformerBlock(nn.Module):
@@ -169,15 +187,18 @@ class AdaLNTransformerBlock(nn.Module):
 
 
 class ConvBlock(nn.Module):
-    """Conv1d + LayerNorm + SiLU (text-encoder prenet style)."""
+    """Conv1d + LayerNorm + SiLU + dropout (text-encoder prenet style)."""
 
-    def __init__(self, c_in: int, dim: int, kernel: int = 5):
+    def __init__(self, c_in: int, dim: int, kernel: int = 5,
+                 dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.Conv_0 = Conv(c_in, dim, kernel)
         self.LayerNorm_0 = LayerNorm(dim)
 
-    def forward(self, x):
-        return F.silu(self.LayerNorm_0(self.Conv_0(x)))
+    def forward(self, x, *, rng=None):
+        return dropout(F.silu(self.LayerNorm_0(self.Conv_0(x))), self.dropout,
+                       rng)
 
 
 class AdaINResBlock(nn.Module):

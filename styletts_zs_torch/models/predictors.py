@@ -1,7 +1,8 @@
 """Duration and prosody (F0/energy) predictors.
 
 Counterpart of ``styletts_zs_tpu/models/predictors.py``: style-conditioned
-conv stacks, with deterministic integer durations at inference.
+conv stacks, with deterministic integer durations at inference and dropout
+(from an explicit generator, ``rng``) in training.
 """
 from __future__ import annotations
 
@@ -10,19 +11,20 @@ import torch.nn.functional as F
 from torch import nn
 
 from styletts_zs_torch.config import PredictorConfig
-from styletts_zs_torch.models.layers import Conv, Dense, LayerNorm
+from styletts_zs_torch.models.layers import Conv, Dense, LayerNorm, dropout
 
 
 class _StyledConvStack(nn.Module):
-    def __init__(self, c_in: int, dim: int, n_layers: int, kernel: int):
+    def __init__(self, c_in: int, dim: int, n_layers: int, kernel: int,
+                 rate: float = 0.0):
         super().__init__()
-        self.n_layers = n_layers
+        self.n_layers, self.rate = n_layers, rate
         for i in range(n_layers):
             self.add_module(f"conv{i}", Conv(c_in if i == 0 else dim, dim,
                                              kernel))
             self.add_module(f"LayerNorm_{i}", LayerNorm(dim))
 
-    def forward(self, x, style, *, mask=None):
+    def forward(self, x, style, *, mask=None, rng=None):
         """x: (B, T, C); style: (B, S) global or (B, T, S) per-position."""
         if style.ndim == 2:
             style = style[:, None, :].expand(x.shape[0], x.shape[1], -1)
@@ -30,6 +32,7 @@ class _StyledConvStack(nn.Module):
         for i in range(self.n_layers):
             h = getattr(self, f"conv{i}")(h)
             h = F.silu(getattr(self, f"LayerNorm_{i}")(h))
+            h = dropout(h, self.rate, rng)
             if mask is not None:
                 h = h * mask[..., None].to(h.dtype)
         return h
@@ -42,12 +45,12 @@ class DurationPredictor(nn.Module):
         super().__init__()
         self.cfg = cfg
         self._StyledConvStack_0 = _StyledConvStack(c_in, cfg.dim, cfg.n_layers,
-                                                   cfg.conv_kernel)
+                                                   cfg.conv_kernel, cfg.dropout)
         self.out = Dense(cfg.dim, 1)
 
-    def forward(self, prosody_enc, style, *, mask=None):
+    def forward(self, prosody_enc, style, *, mask=None, rng=None):
         """log1p-duration predictions (B, T_text), masked to 0."""
-        h = self._StyledConvStack_0(prosody_enc, style, mask=mask)
+        h = self._StyledConvStack_0(prosody_enc, style, mask=mask, rng=rng)
         log_dur = self.out(h)[..., 0]
         if mask is not None:
             log_dur = log_dur * mask.to(log_dur.dtype)
@@ -69,13 +72,13 @@ class ProsodyPredictor(nn.Module):
     def __init__(self, cfg: PredictorConfig, c_in: int):
         super().__init__()
         self._StyledConvStack_0 = _StyledConvStack(c_in, cfg.dim, cfg.n_layers,
-                                                   cfg.conv_kernel)
+                                                   cfg.conv_kernel, cfg.dropout)
         self.out = Dense(cfg.dim, 2)
 
-    def forward(self, aligned_prosody, style, *, mask=None):
+    def forward(self, aligned_prosody, style, *, mask=None, rng=None):
         """(f0, energy), each (B, T_frames)."""
         out = self.out(self._StyledConvStack_0(aligned_prosody, style,
-                                               mask=mask))
+                                               mask=mask, rng=rng))
         f0, energy = out[..., 0], out[..., 1]
         if mask is not None:
             m = mask.to(f0.dtype)

@@ -1,9 +1,10 @@
 """Style system: extractor (mel -> K codes), FSQ quantizer, prompt encoder.
 
 Counterpart of ``styletts_zs_tpu/models/style.py``.  The inference path
-uses ``PromptEncoder`` and ``StyleQuantizer.project_style``; the extractor's
-forward is here so that its parameters have a home, and its training use
-belongs to the training slice.
+uses ``PromptEncoder`` and ``StyleQuantizer.project_style``; stage-1
+training runs the extractor on the ground-truth mel (with its frame mask)
+and ``StyleQuantizer.forward`` (down -> FSQ with a straight-through
+gradient -> up).
 """
 from __future__ import annotations
 
@@ -69,6 +70,16 @@ class StyleQuantizer(nn.Module):
         of the module leaves them alone)."""
         self._up_master = (self.up.weight.detach().float().clone(),
                            self.up.bias.detach().float().clone())
+
+    def forward(self, style: torch.Tensor):
+        """(quantized style (B, K, d_style), codes (B, K, d_fsq), indices)."""
+        codes = fsq.quantize(self.down(style), self.cfg.fsq_levels)
+        indices = fsq.codes_to_indices(codes, self.cfg.fsq_levels)
+        return self.up(codes), codes, indices
+
+    def decode_codes(self, codes: torch.Tensor) -> torch.Tensor:
+        """FSQ-grid codes (B, K, d_fsq) -> style vectors (B, K, d_style)."""
+        return self.up(codes)
 
     def project_style(self, style: torch.Tensor) -> torch.Tensor:
         if self._up_master is None:

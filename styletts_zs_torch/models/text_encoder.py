@@ -24,20 +24,22 @@ class TextEncoder(nn.Module):
         self.cfg = cfg
         self.phoneme_embed = nn.Embedding(cfg.vocab_size, cfg.dim)
         for i in range(cfg.n_conv_layers):
-            self.add_module(f"conv{i}",
-                            ConvBlock(cfg.dim, cfg.dim, cfg.conv_kernel))
+            self.add_module(f"conv{i}", ConvBlock(
+                cfg.dim, cfg.dim, cfg.conv_kernel, dropout=cfg.dropout))
         for i in range(cfg.n_attn_layers):
-            self.add_module(f"attn{i}", TransformerBlock(cfg.dim, cfg.n_heads))
+            self.add_module(f"attn{i}", TransformerBlock(
+                cfg.dim, cfg.n_heads, dropout=cfg.dropout))
         self.LayerNorm_0 = LayerNorm(cfg.dim)
 
-    def forward(self, phoneme_ids, *, mask=None):
+    def forward(self, phoneme_ids, *, mask=None, rng=None):
+        """``rng``: the dropout generator (None: no dropout)."""
         c = self.cfg
         x = self.phoneme_embed(phoneme_ids)
         x = x + position_table(phoneme_ids.shape[1], c.dim, x)
         for i in range(c.n_conv_layers):
-            x = _masked(getattr(self, f"conv{i}")(x), mask)
+            x = _masked(getattr(self, f"conv{i}")(x, rng=rng), mask)
         for i in range(c.n_attn_layers):
-            x = getattr(self, f"attn{i}")(x, mask=mask)
+            x = getattr(self, f"attn{i}")(x, mask=mask, rng=rng)
         return _masked(self.LayerNorm_0(x), mask)
 
 
@@ -51,14 +53,15 @@ class ProsodyTextEncoder(nn.Module):
         self.prosody_embed = nn.Embedding(vocab_size, cfg.dim)
         self.text_proj = Dense(text_dim, cfg.dim)
         for i in range(cfg.n_layers):
-            self.add_module(f"block{i}", TransformerBlock(cfg.dim, cfg.n_heads))
+            self.add_module(f"block{i}", TransformerBlock(
+                cfg.dim, cfg.n_heads, dropout=cfg.dropout))
         self.LayerNorm_0 = LayerNorm(cfg.dim)
 
-    def forward(self, phoneme_ids, text_enc, *, mask=None):
+    def forward(self, phoneme_ids, text_enc, *, mask=None, rng=None):
         c = self.cfg
         x = self.prosody_embed(phoneme_ids)
         x = x + self.text_proj(text_enc)
         x = x + position_table(phoneme_ids.shape[1], c.dim, x)
         for i in range(c.n_layers):
-            x = getattr(self, f"block{i}")(x, mask=mask)
+            x = getattr(self, f"block{i}")(x, mask=mask, rng=rng)
         return _masked(self.LayerNorm_0(x), mask)

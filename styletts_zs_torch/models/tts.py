@@ -2,9 +2,11 @@
 
 Counterpart of ``styletts_zs_tpu/models/tts.py``: text encoding, duration
 prediction, monotonic expansion, prosody prediction and the AdaIN mel
-decoder, with the style codes as an input.  The training forwards
-(``reconstruct``, ``align_energies``) belong to the training slice; the
-modules they use are here so the whole parameter tree has a home.
+decoder, with the style codes as an input; and the stage-1 training
+forwards: ``extract_style`` (ground-truth mel -> quantized style),
+``reconstruct`` (style from the ground truth, durations and F0/energy
+targets given) and ``align_energies`` (the built-in aligner's energies).
+Dropout draws from an explicit generator (``rng``); None turns it off.
 """
 from __future__ import annotations
 
@@ -65,10 +67,16 @@ class StyleTTSZS(nn.Module):
         self.align_mel_proj = Dense(c.audio.n_mels, 128)
         self.align_text_proj = Dense(text_dim, 128)
 
-    def encode_text(self, phoneme_ids, text_mask):
-        text_enc = self.text_encoder(phoneme_ids, mask=text_mask)
-        pros_enc = self.prosody_encoder(phoneme_ids, text_enc, mask=text_mask)
+    def encode_text(self, phoneme_ids, text_mask, *, rng=None):
+        text_enc = self.text_encoder(phoneme_ids, mask=text_mask, rng=rng)
+        pros_enc = self.prosody_encoder(phoneme_ids, text_enc, mask=text_mask,
+                                        rng=rng)
         return text_enc, pros_enc
+
+    def extract_style(self, mel, frame_mask):
+        """Training path: mel -> (quantized style (B, K, d_style), codes,
+        indices)."""
+        return self.quantizer(self.style_extractor(mel, mask=frame_mask))
 
     def encode_prompt(self, ref_mel, ref_mask=None):
         return self.prompt_encoder(ref_mel, mask=ref_mask)
@@ -78,16 +86,22 @@ class StyleTTSZS(nn.Module):
         return self.quantizer.project_style(style)
 
     def text_to_mel(self, phoneme_ids, style, *, text_mask,
-                    n_frames: int | None = None,
-                    encoded=None) -> AcousticOutput:
-        """The core synthesis path.  ``encoded`` is ``encode_text``'s
-        (text_enc, pros_enc) when the caller has it already."""
+                    durations=None, f0_target=None, energy_target=None,
+                    n_frames: int | None = None, encoded=None,
+                    rng=None) -> AcousticOutput:
+        """The core synthesis path.  ``durations`` (B, T_text) overrides
+        the predictor's (training with aligner targets); ``f0_target`` and
+        ``energy_target`` (B, T_frames) go to the decoder in place of the
+        predictions, which are returned all the same.  ``encoded`` is
+        ``encode_text``'s (text_enc, pros_enc) when the caller has it."""
         n_frames = n_frames or self.cfg.max_frames
         text_enc, pros_enc = (encoded if encoded is not None
-                              else self.encode_text(phoneme_ids, text_mask))
+                              else self.encode_text(phoneme_ids, text_mask,
+                                                    rng=rng))
         log_dur = self.duration_predictor(pros_enc, style.mean(dim=1),
-                                          mask=text_mask)
-        durations = self.duration_predictor.to_frames(log_dur, text_mask)
+                                          mask=text_mask, rng=rng)
+        if durations is None:
+            durations = self.duration_predictor.to_frames(log_dur, text_mask)
         frame_lengths = torch.clamp(durations.sum(-1), max=n_frames) \
             .to(torch.int32)
         frame_mask = length_mask(frame_lengths, n_frames)
@@ -96,10 +110,35 @@ class StyleTTSZS(nn.Module):
         style_frames = align.stretch_style_codes(style, frame_lengths,
                                                  n_frames)
         f0, energy = self.prosody_predictor(aligned_pros, style_frames,
-                                            mask=frame_mask)
-        mel, hidden = self.decoder(aligned_text, f0, energy, style_frames,
-                                   mask=frame_mask)
+                                            mask=frame_mask, rng=rng)
+        mel, hidden = self.decoder(
+            aligned_text, f0 if f0_target is None else f0_target,
+            energy if energy_target is None else energy_target, style_frames,
+            mask=frame_mask)
         return AcousticOutput(mel=mel, hidden=hidden, log_dur=log_dur,
                               durations=durations, f0=f0, energy=energy,
                               frame_lengths=frame_lengths,
                               frame_mask=frame_mask)
+
+    def align_energies(self, text_enc, mel, *, text_mask=None):
+        """Alignment energies (B, T_frames, T_text), fp32: scaled products of
+        the projected mel frames and text encodings, masked text at -1e9."""
+        q = self.align_mel_proj(mel)
+        k = self.align_text_proj(text_enc)
+        energies = torch.bmm(q.float(), k.float().transpose(1, 2)) \
+            * 128 ** -0.5
+        if text_mask is not None:
+            energies = energies.masked_fill(~text_mask[:, None, :], -1e9)
+        return energies
+
+    def reconstruct(self, phoneme_ids, mel_gt, durations, *, text_mask=None,
+                    frame_mask=None, f0_target=None, energy_target=None,
+                    rng=None):
+        """Stage-1 training forward: the style from the ground-truth mel.
+        Returns (AcousticOutput, codes, quantized style)."""
+        styled, codes, _ = self.extract_style(mel_gt, frame_mask)
+        out = self.text_to_mel(
+            phoneme_ids, styled, text_mask=text_mask, durations=durations,
+            f0_target=f0_target, energy_target=energy_target,
+            n_frames=mel_gt.shape[1], rng=rng)
+        return out, codes, styled

@@ -1,14 +1,18 @@
-"""Alignment and upsampling ops: phoneme-rate -> frame-rate (inference half).
+"""Alignment and upsampling ops: phoneme-rate -> frame-rate.
 
-Counterpart of the inference functions of ``styletts_zs_tpu/ops/align.py``:
-length expansion is a dense (T_frames x T_text) 0/1 alignment matrix, and
-the K fixed-length style codes are stretched over each utterance by a
-linear-interpolation matrix.  The training-time aligner (forward-sum loss,
-monotonic alignment search) belongs to the training slice.
+Counterpart of ``styletts_zs_tpu/ops/align.py``: length expansion is a
+dense (T_frames x T_text) 0/1 alignment matrix, and the K fixed-length
+style codes are stretched over each utterance by a linear-interpolation
+matrix.  The training-time aligner's objective, ``forward_sum_loss``, is a
+log-space DP over frames, a Python loop where JAX runs ``lax.scan``: about
+five kernel launches a frame forward and twice that backward, so ~15 000 at
+1024 frames.  Monotonic alignment search (off by default,
+``use_mas_durations``) is not ported yet.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def alignment_matrix(durations: torch.Tensor, n_frames: int) -> torch.Tensor:
@@ -48,3 +52,22 @@ def stretch_style_codes(codes: torch.Tensor, lengths: torch.Tensor,
     """codes: (B, K, d) -> (B, n_frames, d)."""
     W = interp_style_matrix(lengths, codes.shape[1], n_frames)
     return torch.bmm(W, codes.float()).to(codes.dtype)
+
+
+def forward_sum_loss(log_probs: torch.Tensor, text_lengths: torch.Tensor,
+                     frame_lengths: torch.Tensor) -> torch.Tensor:
+    """CTC-style forward-sum loss over a (B, T_frames, T_text) lattice of
+    log p(frame t | phoneme i): monotonic paths advance the text index by 0
+    or 1 a frame and end at the last phoneme; frames past an utterance's
+    length leave its alpha unchanged.  -mean(log-sum / frame length)."""
+    B, T, N = log_probs.shape
+    neg = -1e30
+    alpha = F.pad(log_probs[:, 0, :1], (0, N - 1), value=neg)
+    frame_valid = (torch.arange(1, T, device=log_probs.device)[:, None]
+                   < frame_lengths[None, :])[..., None]      # (T-1, B, 1)
+    for t in range(1, T):
+        move = F.pad(alpha[:, :-1], (1, 0), value=neg)
+        new = torch.logaddexp(alpha, move) + log_probs[:, t]
+        alpha = torch.where(frame_valid[t - 1], new, alpha)
+    final = alpha.gather(1, (text_lengths.long() - 1)[:, None])[:, 0]
+    return -(final / torch.clamp(frame_lengths.float(), min=1.0)).mean()

@@ -23,18 +23,31 @@ def same_padding(k: int, dilation: int = 1) -> tuple[int, int]:
     return k_eff // 2, k_eff - 1 - k_eff // 2
 
 
+def same_padding_strided(length: int, k: int, stride: int) -> tuple[int, int]:
+    """SAME padding of a strided conv as XLA places it: ceil(T / stride)
+    outputs, the total pad split with the smaller half on the left (odd
+    totals pad one more on the right), which ``F.conv1d``'s symmetric
+    ``padding`` cannot express."""
+    total = max((-(-length // stride) - 1) * stride + k - length, 0)
+    return total // 2, total - total // 2
+
+
 def conv1d_torch_weight(x: torch.Tensor, weight: torch.Tensor,
                         bias: torch.Tensor | None = None, *,
-                        dilation: int = 1) -> torch.Tensor:
+                        dilation: int = 1, stride: int = 1) -> torch.Tensor:
     """SAME conv with a torch-layout weight (C_out, C_in, K).
 
-    x: (B, T, C_in) -> (B, T, C_out), in x's dtype.
+    x: (B, T, C_in) -> (B, ceil(T / stride), C_out), in x's dtype.
     """
-    left, right = same_padding(weight.shape[-1], dilation)
+    if stride == 1:
+        left, right = same_padding(weight.shape[-1], dilation)
+    else:
+        left, right = same_padding_strided(
+            x.shape[1], (weight.shape[-1] - 1) * dilation + 1, stride)
     h = F.pad(x.transpose(1, 2), (left, right))
     y = F.conv1d(h, weight.to(x.dtype),
                  None if bias is None else bias.to(x.dtype),
-                 dilation=dilation)
+                 dilation=dilation, stride=stride)
     return y.transpose(1, 2)
 
 

@@ -3,7 +3,8 @@
 Counterpart of ``styletts_zs_tpu/ops/stft.py``, with the same conventions:
 reflect-pad center framing, a periodic Hann window of ``win_length`` centred
 inside the ``n_fft`` frame, a Slaney mel filterbank, and an inverse STFT by
-overlap-add normalised by the squared-window envelope.  The constants are
+overlap-add normalised by the squared-window envelope; ``spectrogram`` (the
+MRD discriminator's input) and ``frame_signal`` as in JAX.  The constants are
 built in numpy on the host (float64, cast to float32 once); the transforms
 frame the signal with ``unfold`` and multiply by the windowed DFT basis.
 """
@@ -159,10 +160,25 @@ def stft(wav: torch.Tensor,
     return real, imag
 
 
+def spectrogram(wav: torch.Tensor, cfg: AudioConfig, *, power: float = 1.0,
+                eps: float = 1e-9) -> torch.Tensor:
+    """Magnitude (power=1) or power (power=2) spectrogram, (B, F, n_freq)."""
+    re, im = stft(wav, cfg)
+    mag_sq = re * re + im * im
+    if power == 2.0:
+        return mag_sq
+    return torch.sqrt(mag_sq + eps)
+
+
+def frame_signal(wav: torch.Tensor, frame_length: int,
+                 hop: int) -> torch.Tensor:
+    """(B, T) -> (B, n_frames, frame_length), n_frames = 1 + (T - len)//hop."""
+    return wav.unfold(1, frame_length, hop)
+
+
 def mel_spectrogram(wav: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
     """Log-mel spectrogram, (B, F, n_mels).  The canonical acoustic feature."""
-    re, im = stft(wav, cfg)
-    mag = torch.sqrt(re * re + im * im + 1e-9)
+    mag = spectrogram(wav, cfg)
     fb = torch.as_tensor(stft_constants(cfg)[2], device=wav.device)
     mel = mag @ fb.T
     return torch.log(torch.clamp(mel, min=cfg.log_floor))

@@ -43,11 +43,14 @@ def _port_entry(path: tuple[str, ...], arr: np.ndarray):
 
 
 def convert_params(tree, cfg: Config) -> dict[str, dict[str, torch.Tensor]]:
-    """JAX ``{"acoustic": {"params": ...}, ...}`` -> ``{part: state_dict}``."""
+    """JAX ``{"acoustic": {"params": ...}, ...}`` -> ``{part: state_dict}``,
+    for every part of ``PARTS`` and the discriminator where the tree has
+    one."""
+    parts = PARTS + tuple(p for p in ("discriminator",) if p in tree)
     with torch.device("meta"):
-        targets = {p: m.state_dict() for p, m in _modules(cfg).items()}
+        targets = {p: m.state_dict() for p, m in _modules(cfg, parts).items()}
     out = {}
-    for part in PARTS:
+    for part in parts:
         want = targets[part]
         sd = {}
         for path, arr in _leaves(tree[part]["params"]):

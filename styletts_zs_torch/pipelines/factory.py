@@ -1,12 +1,15 @@
 """Model factory: build the modules from a Config, init or load parameters.
 
 Counterpart of ``styletts_zs_tpu/pipelines/factory.py``.  Parameters are a
-dict ``{"acoustic": state_dict, "diffusion": ..., "vocoder": ...}`` of fp32
-master tensors — from ``init_params`` (seeded, the Flax initialisers'
-distributions) or from ``pipelines.convert.convert_params`` (a JAX tree).
-``build_models`` loads them into modules on a device and casts them once to
-the compute dtype (the diffusion net to ``diffusion_dtype``, fp32).  The
-entry points run on the card unless the caller passes ``device="cpu"``.
+dict ``{"acoustic": state_dict, "diffusion": ..., "vocoder": ...}`` (and
+``"discriminator"`` for training) of fp32 master tensors — from
+``init_params`` (seeded, the Flax initialisers' distributions) or from
+``pipelines.convert.convert_params`` (a JAX tree).  ``build_models`` loads
+them into modules on a device and casts them once to the compute dtype (the
+diffusion net to ``diffusion_dtype``, fp32), for inference;
+``build_train_modules`` builds working copies in the compute dtype for
+``pipelines.train``, which keeps the fp32 masters.  The entry points run on
+the card unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from torch import nn
 
 from styletts_zs_torch.config import Config
 from styletts_zs_torch.models.diffusion import StyleDiffusion
+from styletts_zs_torch.models.discriminators import MultiModalDiscriminator
 from styletts_zs_torch.models.layers import Conv, Dense
 from styletts_zs_torch.models.tts import StyleTTSZS
 from styletts_zs_torch.models.vocoder import Vocoder
@@ -34,18 +38,22 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _modules(cfg: Config) -> dict[str, nn.Module]:
+def _modules(cfg: Config, parts=PARTS) -> dict[str, nn.Module]:
     m = cfg.model
-    return {"acoustic": StyleTTSZS(m),
-            "diffusion": StyleDiffusion(m.diffusion, m.style,
-                                        ctx_dim=m.text_encoder.dim),
-            "vocoder": Vocoder(m.vocoder, n_mels=m.audio.n_mels)}
+    make = {"acoustic": lambda: StyleTTSZS(m),
+            "diffusion": lambda: StyleDiffusion(m.diffusion, m.style,
+                                                ctx_dim=m.text_encoder.dim),
+            "vocoder": lambda: Vocoder(m.vocoder, n_mels=m.audio.n_mels),
+            "discriminator": lambda: MultiModalDiscriminator(
+                m.discriminator, n_mels=m.audio.n_mels)}
+    return {p: make[p]() for p in parts}
 
 
-def _empty_modules(cfg: Config, device: torch.device) -> dict[str, nn.Module]:
+def _empty_modules(cfg: Config, device: torch.device,
+                   parts=PARTS) -> dict[str, nn.Module]:
     """The modules with uninitialised storage (no default init is run)."""
     with torch.device("meta"):
-        mods = _modules(cfg)
+        mods = _modules(cfg, parts)
     return {k: v.to_empty(device=device) for k, v in mods.items()}
 
 
@@ -78,13 +86,16 @@ def _init_module(mod: nn.Module, g: torch.Generator) -> None:
             _lecun_(p, p.shape[0] * p.shape[1], g)  # raw (K, in, out)
 
 
-def init_params(cfg: Config, *, seed: int = 0, device=None):
-    """Seeded fp32 parameters for every model part."""
+def init_params(cfg: Config, *, seed: int = 0, device=None,
+                with_discriminator: bool = False):
+    """Seeded fp32 parameters for every model part (the discriminator's
+    last, from the same generator, when asked for)."""
     dev = resolve_device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
+    parts = PARTS + ("discriminator",) if with_discriminator else PARTS
     params = {}
     with torch.no_grad():
-        for part, mod in _empty_modules(cfg, dev).items():
+        for part, mod in _empty_modules(cfg, dev, parts).items():
             _init_module(mod, g)
             params[part] = mod.state_dict()
     return params
@@ -112,3 +123,18 @@ def build_models(cfg: Config, params, *, device=None) -> Models:
     mods["diffusion"].to(getattr(torch, cfg.runtime.diffusion_dtype))
     return Models(**mods)
 
+
+
+def build_train_modules(cfg: Config, params, parts, *,
+                        device=None) -> dict[str, nn.Module]:
+    """Working copies of ``parts`` on ``device`` in the compute dtype, with
+    gradients on: Flax casts its fp32 parameters to the compute dtype at
+    each use, so the gradient is the compute-dtype one, which the trainer
+    upcasts onto its fp32 masters."""
+    dev = resolve_device(device)
+    dt = getattr(torch, cfg.runtime.compute_dtype)
+    mods = _empty_modules(cfg, dev, parts)
+    for part, mod in mods.items():
+        mod.load_state_dict(params[part], strict=True)
+        mod.to(dt).train()
+    return mods

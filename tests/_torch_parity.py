@@ -17,15 +17,17 @@ def leaf_name(path) -> str:
     return "/".join(str(getattr(k, "key", k)) for k in path)
 
 
-def random_tree(cfg, seed: int = 0):
-    """Numpy weights for every leaf of ``init_params(cfg)``'s tree.
+def random_tree(cfg, seed: int = 0, *, with_discriminator: bool = False):
+    """Numpy weights for every leaf of ``init_params(cfg)``'s tree (with
+    the discriminator's when asked for).
 
     Matrices ~ N(0, 1/fan_in), vectors ~ N(0, 0.1²) (LayerNorm scales
     1 + that), so no part is a zero-init identity (e.g. the AdaLN gates);
     the duration head's bias puts durations at a few frames per phoneme so
     the utterances are not empty.
     """
-    shapes = jax.eval_shape(lambda: jax_init_params(cfg, jax.random.PRNGKey(0)))
+    shapes = jax.eval_shape(lambda: jax_init_params(
+        cfg, jax.random.PRNGKey(0), with_discriminator=with_discriminator))
     rs = np.random.default_rng(seed)
 
     def make(path, s):

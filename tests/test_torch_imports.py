@@ -34,15 +34,16 @@ BLOCKED_RUN = textwrap.dedent('''
     import torch
     assert not torch.cuda.is_available()
     from styletts_zs_torch.config import tiny_test_config
-    from styletts_zs_torch.pipelines import factory, infer
+    from styletts_zs_torch.pipelines import factory, infer, train
     cfg = tiny_test_config()
-    params = factory.init_params(cfg, device="cpu")
+    params = factory.init_params(cfg, device="cpu", with_discriminator=True)
     calls = {
         "init_params": lambda: factory.init_params(cfg),
         "build_models": lambda: factory.build_models(cfg, params),
         "make_synthesis_fn": lambda: infer.make_synthesis_fn(cfg, params),
         "make_fixed_style_fn": lambda: infer.make_fixed_style_fn(cfg, params),
         "Synthesizer": lambda: infer.Synthesizer(cfg, params),
+        "Stage1Trainer": lambda: train.Stage1Trainer(cfg, params),
     }
     for name, call in calls.items():
         try:

@@ -202,7 +202,12 @@ def test_chip_smoke_main_path_rehearsal_on_cpu():
     assert r["counts"] == {"local_attention": 2, "synthesis_head": 2,
                            "full_attention": 16, "sampler_euler": 0,
                            "sampler_heun": 0, "adain_conv": 8,
-                           "conv_transpose": 4}
+                           "conv_transpose": 4,
+                           # inference launches no training kernel
+                           "local_attention_fwd_lse": 0,
+                           "local_attention_bwd_dq": 0,
+                           "local_attention_bwd_dkv": 0,
+                           "adain_conv_bwd_data": 0}
     assert int(r["out"].frame_lengths.min()) > 0
     # a count off its expectation fails the run: a 32-frame path is one
     # chunk, where the decoder's attention is full attention, but the

@@ -7,6 +7,7 @@ XLA twin; chunk-local attention takes every length the JAX twin takes
 (JAX's Pallas gate included), the synthesis head's gate is compared with
 JAX's; and the routing and the wrappers' refusals are checked.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -316,10 +317,272 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
 def test_build_lists_every_source_and_names_the_target():
     names = [p.name for p in build.sources()]
-    assert names == ["adain_conv.cu", "conv_transpose.cu",
-                     "full_attention.cu", "local_attention.cu", "sampler.cu",
-                     "synthesis_head.cu"]
+    assert names == ["adain_conv.cu", "adain_conv_bwd.cu",
+                     "conv_transpose.cu", "full_attention.cu",
+                     "local_attention.cu", "local_attention_bwd.cu",
+                     "sampler.cu", "synthesis_head.cu"]
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     for p in build.sources():
         src = p.read_text()
         assert "#include <torch" not in src and 'extern "C"' in src
+
+
+# --- rows 3-5: the local-attention forward with lse and its backward --------
+
+TRAIN_CHUNK = 128
+
+
+def _train_attn_inputs(T, *, zero_masked_rows):
+    """(B 2, T, H 2, D 64) inputs; lengths T and 200, so at T 512 the last
+    chunk's queries have no valid key; the cotangent zeroed on the query
+    rows past the length (as the decoder zeroes them) or not."""
+    B, H, D = 2, 2, 64
+    q, k, v, g = (rnd(B, T, H, D, seed=s) for s in (21, 22, 23, 24))
+    lengths = np.array([T, 200], np.int32)
+    mask = np.arange(T)[None] < lengths[:, None]
+    if zero_masked_rows:
+        g = g * mask[..., None, None]
+    return q, k, v, g, lengths, mask
+
+
+def _port_fwd_bwd(q, k, v, g, lengths, chunk):
+    tq, tk, tv, tg, tl = (t(a) for a in (q, k, v, g, lengths))
+    out, lse = la.local_attention_fwd_lse_plain(tq, tk, tv, tl, chunk=chunk)
+    delta = (tg * out).sum(-1).transpose(1, 2).contiguous()
+    dq = la.local_attention_bwd_dq_plain(tq, tk, tv, tg, lse, delta, tl,
+                                         chunk=chunk)
+    dk, dv = la.local_attention_bwd_dkv_plain(tq, tk, tv, tg, lse, delta, tl,
+                                              chunk=chunk)
+    return out, lse, dq, dk, dv
+
+
+@pytest.mark.parametrize("T", [384, 512])
+@pytest.mark.parametrize("zero_masked_rows", [False, True])
+def test_local_attention_train_plain_matches_pallas(T, zero_masked_rows):
+    """Rows 3, 4 and 5's plain versions against ``local_attention_fwd_pallas``
+    and ``local_attention_bwd_pallas`` in interpret mode, on every row: the
+    queries with no valid key included (p = 1 on their masked keys in both).
+    fp32 sums of up to 3c products in another order: 1e-4."""
+    q, k, v, g, lengths, mask = _train_attn_inputs(
+        T, zero_masked_rows=zero_masked_rows)
+    out_j, res = attention_kernel.local_attention_fwd_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), chunk=TRAIN_CHUNK,
+        kv_mask=jnp.asarray(mask))
+    dq_j, dk_j, dv_j = attention_kernel.local_attention_bwd_pallas(
+        res, jnp.asarray(g), chunk=TRAIN_CHUNK)
+    out, lse, dq, dk, dv = _port_fwd_bwd(q, k, v, g, lengths, TRAIN_CHUNK)
+    lse_j = np.asarray(res[4])[:, :, 0, :]
+    assert (lse_j[1, :, 3 * TRAIN_CHUNK:] < -1e29).all()   # no valid key
+    for got, ref in ((out, out_j), (lse, lse_j), (dq, dq_j), (dk, dk_j),
+                     (dv, dv_j)):
+        np.testing.assert_allclose(n(got), n(ref), atol=1e-4, rtol=1e-4)
+
+
+def test_local_attention_train_plain_matches_twin_vjp_at_two_chunks():
+    """At T = 2c (outside the Pallas backward's gate) the plain versions
+    against ``jax.vjp`` of the XLA twin, the cotangent zeroed on the query
+    rows past the length (the twin averages zero-padded neighbours on rows
+    with no valid key; the decoder zeroes those rows).  fp32: 1e-4."""
+    T = 2 * TRAIN_CHUNK
+    q, k, v, g, lengths, mask = _train_attn_inputs(T, zero_masked_rows=True)
+    out_j, vjp = jax.vjp(
+        lambda q, k, v: j_attn.local_attention(
+            q, k, v, chunk=TRAIN_CHUNK, kv_mask=jnp.asarray(mask)),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    refs = vjp(jnp.asarray(g))
+    out, _, *grads = _port_fwd_bwd(q, k, v, g, lengths, TRAIN_CHUNK)
+    rows = mask[..., None, None] & np.ones_like(q, bool)
+    np.testing.assert_allclose(n(out)[rows], n(out_j)[rows], atol=1e-4,
+                               rtol=1e-4)
+    for got, ref in zip(grads, refs):
+        np.testing.assert_allclose(n(got), n(ref), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("T", [256, 512])
+def test_local_attention_function_routes_and_matches_twin_grads(T):
+    """Through ``dispatch.local_attention`` with grad: rows 3-5's plain
+    versions (counted) at T >= 2c, the full-attention Function with the
+    twin's backward at T <= c; gradients equal to the twin's where the
+    cotangent is live; under no_grad the inference route, unchanged."""
+    chunk = TRAIN_CHUNK if T > TRAIN_CHUNK else T
+    q, k, v, g, lengths, mask = _train_attn_inputs(T, zero_masked_rows=True)
+    before = dict(dispatch.plain_calls)
+    twins = dict(plain.twin_vjp_calls)
+    xs = [t(a).requires_grad_() for a in (q, k, v)]
+    out = dispatch.local_attention(*xs, chunk=chunk, kv_mask=t(mask))
+    grads = torch.autograd.grad(out, xs, t(g))
+    calls = {k_: dispatch.plain_calls[k_] - before[k_] for k_ in before}
+    if T > chunk:
+        assert calls["local_attention_fwd_lse"] == 1 and \
+            calls["local_attention_bwd_dq"] == 1 and \
+            calls["local_attention_bwd_dkv"] == 1
+        assert calls["local_attention"] == 0
+    else:
+        assert calls["full_attention"] == 1
+        assert plain.twin_vjp_calls.get("full_attention", 0) == \
+            twins.get("full_attention", 0) + 1
+    _, vjp = jax.vjp(
+        lambda q, k, v: j_attn.local_attention(
+            q, k, v, chunk=chunk, kv_mask=jnp.asarray(mask)),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    for got, ref in zip(grads, vjp(jnp.asarray(g))):
+        np.testing.assert_allclose(n(got), n(ref), atol=1e-4, rtol=1e-4)
+    before = dict(dispatch.plain_calls)
+    with torch.no_grad():
+        dispatch.local_attention(*xs, chunk=chunk, kv_mask=t(mask))
+    name = "local_attention" if T > chunk else "full_attention"
+    assert {k_: dispatch.plain_calls[k_] - before[k_] for k_ in before} == \
+        {k_: int(k_ == name) for k_ in before}
+
+
+# --- row 7: the AdaIN conv backward-data pass --------------------------------
+
+def _bwd_data_inputs(B=2, T=300, C=16, C_out=24, K=5, seed=30):
+    dc = rnd(B, T, C_out, seed=seed)
+    x = rnd(B, T, C, seed=seed + 1)
+    s = rnd(B, T, C, seed=seed + 2, scale=0.3)
+    b = rnd(B, T, C, seed=seed + 3, scale=0.3)
+    w = rnd(K, C, C_out, seed=seed + 4, scale=(K * C) ** -0.5)
+    return dc, x, s, b, w
+
+
+@pytest.mark.parametrize("dilation", [1, 3, 9])
+def test_adain_bwd_data_plain_matches_pallas(dilation):
+    """Row 7's plain version against ``_bwd_data_mod_pass`` in interpret
+    mode (C 16 -> 24, so the transposed taps are not square).  fp32 sums
+    of K * C_out products in another order: 1e-5."""
+    from styletts_zs_tpu.kernels import decoder_kernels as dk
+    dc, x, s, b, w = _bwd_data_inputs()
+    mean, rstd = dk._instance_stats(jnp.asarray(x))
+    ref = dk._bwd_data_mod_pass(jnp.asarray(dc), jnp.asarray(x),
+                                jnp.asarray(s), jnp.asarray(b), mean, rstd,
+                                jnp.asarray(w), dilation=dilation)
+    out = ac.adain_conv_bwd_data_plain(t(dc), t(x), t(s), t(b), t(mean),
+                                       t(rstd), t(w), dilation=dilation)
+    np.testing.assert_allclose(n(out), n(ref), atol=1e-5, rtol=1e-5)
+    # a global (B, C) style is the same function as its broadcast
+    g_s, g_b = s[:, 0], b[:, 0]
+    out_g = ac.adain_conv_bwd_data_plain(t(dc), t(x), t(g_s), t(g_b),
+                                         t(mean), t(rstd), t(w),
+                                         dilation=dilation)
+    ref_g = dk._bwd_data_mod_pass(
+        jnp.asarray(dc), jnp.asarray(x),
+        jnp.broadcast_to(jnp.asarray(g_s)[:, None], x.shape),
+        jnp.broadcast_to(jnp.asarray(g_b)[:, None], x.shape), mean, rstd,
+        jnp.asarray(w), dilation=dilation)
+    np.testing.assert_allclose(n(out_g), n(ref_g), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dilation", [1, 3, 9])
+@pytest.mark.parametrize("tv_style", [False, True])
+def test_adain_block_function_matches_jax_grad(dilation, tv_style):
+    """The block's ``autograd.Function`` (row 6 forward, row 7 and the
+    PyTorch steps backward; plain versions on the CPU) against ``jax.grad``
+    of ``dispatch.adain_conv_block(use_pallas=True)`` (the XLA forward and
+    the Pallas backward, interpret mode), for all five inputs.  fp32: the
+    JAX package's own bound for these gradients, 2e-4."""
+    B, T, C, K = 2, 96, 16, 5
+    x = rnd(B, T, C, seed=40)
+    shp = (B, T, 2 * C) if tv_style else (B, 2 * C)
+    sc, sh = rnd(*shp, seed=41, scale=0.2), rnd(*shp, seed=42, scale=0.2)
+    k1 = rnd(K, C, C, seed=43, scale=0.1)
+    k2 = rnd(K, C, C, seed=44, scale=0.1)
+
+    def f(x, sc, sh, k1, k2):
+        y = j_dispatch.adain_conv_block(x, sc, sh, k1, k2, dilation=dilation,
+                                        use_pallas=True)
+        return jnp.sum(jnp.sin(y))
+
+    refs = jax.grad(f, argnums=(0, 1, 2, 3, 4))(
+        *(jnp.asarray(a) for a in (x, sc, sh, k1, k2)))
+    xs = [t(a).requires_grad_() for a in (x, sc, sh, k1, k2)]
+    before = dict(dispatch.plain_calls)
+    y = dispatch.adain_conv_block(*xs, dilation=dilation)
+    grads = torch.autograd.grad(torch.sin(y).sum(), xs)
+    assert dispatch.plain_calls["adain_conv_bwd_data"] == \
+        before["adain_conv_bwd_data"] + 2
+    assert dispatch.plain_calls["adain_conv"] == before["adain_conv"] + 2
+    for got, ref, name in zip(grads, refs, ["x", "scale", "shift", "k1",
+                                            "k2"]):
+        assert got.shape == ref.shape, name
+        np.testing.assert_allclose(n(got), n(ref), atol=2e-4, rtol=2e-4,
+                                   err_msg=f"d{name}")
+
+
+# --- rows 2, 10 and 12: kernel forward, the twin's gradient backward ---------
+
+def test_full_attention_function_matches_jax_custom_vjp():
+    """``FullAttention`` against JAX's custom VJP of the Pallas kernel
+    (``_full_attention_ad``, backward through the XLA twin), a row with no
+    valid key included.  fp32: 1e-5."""
+    q, k, v = rnd(2, 50, 2, 16, seed=50), rnd(2, 70, 2, 16, seed=51), \
+        rnd(2, 70, 2, 16, seed=52)
+    mask = np.arange(70)[None] < np.array([[70], [0]])
+    g = rnd(2, 50, 2, 16, seed=53)
+    out_j, vjp = jax.vjp(
+        lambda q, k, v: j_dispatch._full_attention_ad(True)(
+            q, k, v, jnp.asarray(mask)),
+        *(jnp.asarray(a) for a in (q, k, v)))
+    xs = [t(a).requires_grad_() for a in (q, k, v)]
+    out = dispatch.full_attention(*xs, kv_mask=t(mask))
+    np.testing.assert_allclose(n(out), n(out_j), atol=1e-5, rtol=1e-5)
+    for got, ref in zip(torch.autograd.grad(out, xs, t(g)),
+                        vjp(jnp.asarray(g))):
+        np.testing.assert_allclose(n(got), n(ref), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("K,r", [(10, 5), (4, 2)])
+def test_conv_transpose_function_matches_jax_custom_vjp(K, r):
+    """``ConvTranspose`` with the fused leaky ReLU against JAX's custom VJP
+    of the Pallas kernel (``_conv_transpose_ad``) after ``leaky_relu``, as
+    the JAX vocoder calls it.  fp32: 1e-5."""
+    x = rnd(2, 13, 8, seed=54)
+    w = rnd(K, 8, 6, seed=55, scale=0.3)
+    g = rnd(2, 13 * r, 6, seed=56)
+    _, vjp = jax.vjp(
+        lambda x, w: j_dispatch._conv_transpose_ad(r)(
+            jax.nn.leaky_relu(x, 0.1), w), jnp.asarray(x), jnp.asarray(w))
+    xs = [t(x).requires_grad_(), t(w).requires_grad_()]
+    twins = plain.twin_vjp_calls.get("conv_transpose", 0)
+    out = dispatch.conv_transpose1d(*xs, stride=r, negative_slope=0.1)
+    grads = torch.autograd.grad(out, xs, t(g))
+    assert plain.twin_vjp_calls["conv_transpose"] == twins + 1
+    for got, ref in zip(grads, vjp(jnp.asarray(g))):
+        np.testing.assert_allclose(n(got), n(ref), atol=1e-5, rtol=1e-5)
+
+
+def test_synthesis_head_function_matches_jax_custom_vjp():
+    """``SynthesisHead`` against JAX's custom VJP of the fused head
+    (``_synthesis_head_ad``, backward through the XLA composition).
+    fp32: 1e-4 (the exp and rsqrt of the epilogue)."""
+    n_fft, hop = 8, 4
+    x = rnd(2, 20, 8, seed=57, scale=0.7)
+    w = rnd(7, 8, 15, seed=58, scale=0.05)
+    b = rnd(15, seed=59, scale=0.1)
+    g = rnd(2, 19 * hop, seed=60)
+    _, vjp = jax.vjp(j_dispatch._synthesis_head_ad(n_fft, hop),
+                     *(jnp.asarray(a) for a in (x, w, b)))
+    xs = [t(a).requires_grad_() for a in (x, w, b)]
+    out = dispatch.synthesis_head(*xs, n_fft=n_fft, hop=hop)
+    for got, ref in zip(torch.autograd.grad(out, xs, t(g)),
+                        vjp(jnp.asarray(g))):
+        np.testing.assert_allclose(n(got), n(ref), atol=1e-4, rtol=1e-4)
+
+
+def test_training_wrappers_refuse_cpu_tensors():
+    """Rows 3-5 and 7's CUDA wrappers raise on CPU tensors (no fallback)."""
+    q, k, v, g, lengths, _ = _train_attn_inputs(256, zero_masked_rows=True)
+    tq, tk, tv, tg, tl = (t(a) for a in (q, k, v, g, lengths))
+    lse = torch.zeros(2, 2, 256)
+    with pytest.raises(ValueError):
+        la.local_attention_fwd_lse_cuda(tq, tk, tv, tl, chunk=TRAIN_CHUNK)
+    with pytest.raises(ValueError):
+        la.local_attention_bwd_dq_cuda(tq, tk, tv, tg, lse, lse, tl,
+                                       chunk=TRAIN_CHUNK)
+    with pytest.raises(ValueError):
+        la.local_attention_bwd_dkv_cuda(tq, tk, tv, tg, lse, lse, tl,
+                                        chunk=TRAIN_CHUNK)
+    dc, x, s, b, w = (t(a) for a in _bwd_data_inputs())
+    mean, rstd = ac.instance_stats(x)
+    with pytest.raises(ValueError):
+        ac.adain_conv_bwd_data_cuda(dc, x, s, b, mean, rstd, w, dilation=1)
