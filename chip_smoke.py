@@ -47,12 +47,25 @@ Phases, one line each with its seconds:
                   fp32 on the CPU at batch 2 (FSQ codes and durations
                   equal, every loss term and gradient tensor within its
                   tolerance);
- 11. profile    — the same breakdown for one train step.
+ 11. profile    — the same breakdown for one train step;
+ 12. serve      — acceptance level 5 at full size (``Server``: batch 32,
+                  buckets of 256, 512 and 1024 frames, 1-step, mel only,
+                  bf16): 256 requests (a warm-up call, the median of 5),
+                  the contract's 4096 requests once, 256 with the vocoder
+                  once; requests/s, served and padded audio-s/s, peak
+                  memory, the launches per call against the bucket plan,
+                  the plan against the batches served; then fp32 on the
+                  card against fp32 on the CPU at 8 requests;
+ 13. profile    — the same breakdown for one 256-request call;
+ 14. verify     — the numerics gate, acceptance level 1
+                  (``run_verification(max_frames=256, device="cuda")``).
 Phase 3 also holds the training kernels (rows 3-5: the local-attention
 forward with its log-sum-exp and the dq, dk/dv backward; row 7: the AdaIN
 conv backward-data) against their plain versions at the train step's
-shapes.  After every path on the card no plain version has seen a CUDA
-tensor.
+shapes, and row 11, the standalone iSTFT, at the vocoder head's two
+shapes; right after it, row 11's one entry point (``dispatch.istft_head``,
+on no model path) runs with grad on.  After every path on the card no
+plain version has seen a CUDA tensor.
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result; without a CUDA device it stops in
@@ -74,11 +87,13 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from styletts_zs_torch.config import (Config, ModelConfig,  # noqa: E402
-                                      RuntimeConfig, load_config)
+                                      RuntimeConfig, ServeConfig,
+                                      load_config)
 from styletts_zs_torch.kernels import adain_conv as ac_kernel  # noqa: E402
 from styletts_zs_torch.kernels import build, dispatch, plain  # noqa: E402
 from styletts_zs_torch.kernels import conv_transpose as ct_kernel  # noqa: E402
 from styletts_zs_torch.kernels import full_attention as fa_kernel  # noqa: E402
+from styletts_zs_torch.kernels import istft as istft_kernel  # noqa: E402
 from styletts_zs_torch.kernels import local_attention as la_kernel  # noqa: E402
 from styletts_zs_torch.kernels import sampler as sampler_kernel  # noqa: E402
 from styletts_zs_torch.kernels import synthesis_head as head_kernel  # noqa: E402
@@ -87,12 +102,16 @@ from styletts_zs_torch.ops import align as align_ops  # noqa: E402
 from styletts_zs_torch.ops import conv as conv_ops  # noqa: E402
 from styletts_zs_torch.ops import stft as stft_ops  # noqa: E402
 from styletts_zs_torch.ops.attention import length_mask  # noqa: E402
+from styletts_zs_torch.parallel import bucketing  # noqa: E402
 from styletts_zs_torch.pipelines.factory import (build_models,  # noqa: E402
                                                  init_params)
 from styletts_zs_torch.pipelines.data import SyntheticDataset  # noqa: E402
 from styletts_zs_torch.pipelines.infer import make_synthesis_fn  # noqa: E402
+from styletts_zs_torch.pipelines.serve import Request, Server  # noqa: E402
 from styletts_zs_torch.pipelines.train import (Stage1Trainer,  # noqa: E402
                                                batch_to_device)
+from styletts_zs_torch.pipelines.verify import run_verification  # noqa: E402
+from styletts_zs_torch.utils import text as text_utils  # noqa: E402
 
 REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
@@ -144,6 +163,11 @@ TOL = {
     # row 7: row 6's sums (2 560 products, |y| up to ~5) times silu'
     "adain_conv_bwd_data": {torch.float32: (1e-4, 1e-4),
                             torch.bfloat16: (1e-2, 1e-2)},
+    # row 11: each sample sums 4 frames x 50 basis products (|wav| < ~2)
+    # in one fp32 accumulator, the plain version as a cuBLAS product and
+    # then the overlap-add (~1e-7 relative apart); the gradient (its twin's,
+    # on either device) sums the same products transposed
+    "istft": {torch.float32: (1e-5, 1e-5)},
 }
 # The untrained duration head predicts log-durations near 0, which round to
 # 0 frames: every utterance would be empty.  Its bias is set so that the
@@ -182,6 +206,13 @@ LOSS_RTOL = 1e-4
 GRAD_RTOL = 1e-2
 GRAD_FLOOR = 1e-6
 PARITY_SEED = 1
+# Serving: with DURATION_BIAS the untrained duration head gives ~4.3 frames
+# to each of level 5's random ARPAbet phonemes (3.9 gave 9 % more frames
+# than the estimates on the card), so a request of e frames gets about
+# e / 4.3 phonemes, BOS and EOS included.
+SERVE_FRAMES_PER_PHONEME = 4.3
+# The numerics gate: 64 phonemes at ~4 frames each fill most of its 256.
+VERIFY_DURATION_BIAS = float(np.log1p(3.0))
 SOURCES = {
     "local_attention": ("styletts_zs_torch/csrc/local_attention.cu",
                         "styletts_zs_tpu/kernels/attention_kernel.py:35"),
@@ -205,6 +236,8 @@ SOURCES = {
                                 "styletts_zs_tpu/kernels/attention_kernel.py:301"),
     "adain_conv_bwd_data": ("styletts_zs_torch/csrc/adain_conv_bwd.cu",
                             "styletts_zs_tpu/kernels/decoder_kernels.py:203"),
+    "istft": ("styletts_zs_torch/csrc/istft.cu",
+              "styletts_zs_tpu/kernels/vocoder_kernels.py:271"),
 }
 MULTISTEP_CONFIG = REPO / "configs" / "multistep_b32.toml"
 LONGFORM_CONFIG = REPO / "configs" / "longform_60s.toml"
@@ -994,6 +1027,65 @@ def check_adain_conv_bwd(card: str) -> dict:
     return res
 
 
+def _istft_library(real, imag, n_fft: int, hop: int):
+    """``torch.istft`` of the same spectrum: the complex (B, n_freq, F)
+    tensor built outside the timed call, a periodic Hann window of n_fft
+    (as ``ops/stft.py``'s), centred, (F-1)*hop samples."""
+    spec = torch.complex(real, imag).transpose(1, 2)
+    window = torch.hann_window(n_fft, device=real.device)
+    length = (real.shape[1] - 1) * hop
+    return lambda: torch.istft(spec, n_fft, hop_length=hop, win_length=n_fft,
+                               window=window, center=True, length=length)
+
+
+def check_istft(card: str, n_fft: int = 48, hop: int = 12) -> dict:
+    """Row 11 in fp32 at the vocoder head's geometry and its two shapes:
+    the 1-step head (32 x 25 600 frames: 1024 mel frames x 25) and the
+    long-form head (4 x 121 600); kernel, plain, ``torch.istft`` (when it
+    agrees with the plain version within the tolerance) and the bound."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+    n_freq = n_fft // 2 + 1
+    res, errs = {}, []
+    for B, F in ((32, 25600), (4, 121600)):
+        real, imag = (torch.randn(B, F, n_freq, generator=g, device="cuda")
+                      for _ in range(2))
+
+        def kernel():
+            return istft_kernel.istft_cuda(real, imag, n_fft=n_fft, hop=hop)
+
+        def plain_fn():
+            return istft_kernel.istft_plain(real, imag, n_fft=n_fft, hop=hop)
+        out, ref = kernel(), plain_fn()
+        torch.cuda.synchronize()
+        if out.shape != ref.shape:
+            raise AssertionError(f"istft shape {out.shape} vs {ref.shape}")
+        errs.append(check_close("istft", f"B{B}F{F}", torch.float32, out,
+                                ref))
+        ms = cuda_ms(kernel)
+        plain_ms = cuda_ms(plain_fn, iters=3)
+        library = _istft_library(real, imag, n_fft, hop)
+        atol, rtol = TOL["istft"][torch.float32]
+        lib_diff = (library() - ref).abs()
+        lib_err = lib_diff.max().item()
+        library_ms = (cuda_ms(library, iters=5) if
+                      (lib_diff - rtol * ref.abs()).max().item() <= atol
+                      else None)
+        n_bytes = (real.numel() + imag.numel() + out.numel()) * 4
+        flops = 2 * B * F * 2 * n_freq * n_fft
+        bms, by = bound_ms(n_bytes, flops, FP32_FLOP_PER_S)
+        lib_txt = (f"{library_ms:.4f} ms" if library_ms is not None else
+                   f"none (max_abs_err {lib_err:.2e} against the plain "
+                   f"version)")
+        print(f"  istft fp32 B{B} F{F} n_fft{n_fft} hop{hop}: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.istft {lib_txt}, "
+              f"bound {bms:.4f} ms ({by}; {n_bytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.2f} GFLOP)  [{card}]")
+        res[f"B{B}"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                        "bound_by": by, "library_ms": library_ms,
+                        "library_max_abs_err": lib_err}
+    return {"max_abs_err": max(errs), **res["B32"], "long_form": res["B4"]}
+
+
 def phase_kernel_checks(card: str) -> dict:
     return {"local_attention": check_local_attention(),
             "synthesis_head": check_synthesis_head(),
@@ -1002,7 +1094,44 @@ def phase_kernel_checks(card: str) -> dict:
             "adain_conv": check_adain_conv(card),
             "conv_transpose": check_conv_transpose(card),
             **check_local_attention_train(card),
-            "adain_conv_bwd_data": check_adain_conv_bwd(card)}
+            "adain_conv_bwd_data": check_adain_conv_bwd(card),
+            "istft": check_istft(card)}
+
+
+def phase_istft_head(card: str, n_fft: int = 48, hop: int = 12) -> dict:
+    """Row 11's one entry point, ``dispatch.istft_head``, on CUDA tensors
+    with grad on, as JAX's ``istft_head(use_pallas=True)``: one kernel
+    launch forward, one twin backward and no plain version on the card;
+    the output and the gradient against the same call on the CPU (the plain
+    version and the twin's gradient there).  The model paths never call it
+    (the synthesis head's twin takes ``ops.stft.istft``, as JAX's does)."""
+    g = torch.Generator().manual_seed(10)
+    B, F = 4, 2048
+    n_freq = n_fft // 2 + 1
+    real, imag = (torch.randn(B, F, n_freq, generator=g) for _ in range(2))
+    cot = torch.randn(B, (F - 1) * hop, generator=g)
+
+    def run(device):
+        xs = [x.to(device).requires_grad_() for x in (real, imag)]
+        out = dispatch.istft_head(*xs, n_fft=n_fft, hop=hop)
+        return (out, *torch.autograd.grad(out, xs, cot.to(device)))
+    reset_counts()
+    got = run("cuda")
+    torch.cuda.synchronize()
+    counts = kernel_counts(torch.device("cuda"))
+    twins = dict(plain.twin_vjp_calls)
+    check_no_plain_on_card("istft_head")
+    check_counts("istft_head", counts, {"istft": 1}, 1)
+    if twins != {"istft": 1}:
+        raise AssertionError(f"istft_head backward: twin backwards {twins}, "
+                             f"expected one of istft")
+    ref = run("cpu")
+    for name, a, b in zip(("wav", "d_real", "d_imag"), got, ref):
+        check_close("istft", name, torch.float32, a.cpu(), b)
+    print(f"  dispatch.istft_head B{B} F{F} with grad on: kernel launches "
+          f"{ {k: v for k, v in counts.items() if v} }, twin backwards "
+          f"{twins}, no plain version on the card  [{card}]")
+    return {"counts": counts, "n_calls": 1}
 
 
 # ---------------------------------------------------------------------------
@@ -1019,6 +1148,7 @@ def reset_counts() -> None:
     ac_kernel.launches = 0
     ac_kernel.bwd_data_launches = 0
     ct_kernel.launches = 0
+    istft_kernel.launches = 0
     for counts in (sampler_kernel.launches, dispatch.plain_calls):
         for name in counts:
             counts[name] = 0
@@ -1038,7 +1168,8 @@ def kernel_counts(device: torch.device) -> dict:
                 "local_attention_fwd_lse": la_kernel.fwd_lse_launches,
                 "local_attention_bwd_dq": la_kernel.bwd_dq_launches,
                 "local_attention_bwd_dkv": la_kernel.bwd_dkv_launches,
-                "adain_conv_bwd_data": ac_kernel.bwd_data_launches}
+                "adain_conv_bwd_data": ac_kernel.bwd_data_launches,
+                "istft": istft_kernel.launches}
     return dict(dispatch.plain_calls)
 
 
@@ -1048,6 +1179,18 @@ def check_no_plain_on_card(label: str) -> None:
     if plain.cuda_calls:
         raise AssertionError(f"{label}: plain versions ran on the card "
                              f"{plain.cuda_calls}")
+
+
+def check_counts(label: str, counts: dict, expect: dict, n_calls: int) -> None:
+    """Fail unless every kernel launched ``expect[name]`` times a call over
+    ``n_calls`` calls, and a kernel absent from ``expect`` never (a kernel
+    that ``expect`` lists at 0 is a fault of the expectation)."""
+    wrong = [f"{name}: {n} calls in {n_calls} {label} calls, expected "
+             f"{expect.get(name, 0)} each" for name, n in counts.items()
+             if (name in expect and expect[name] == 0)
+             or n != expect.get(name, 0) * n_calls]
+    if wrong:
+        raise AssertionError("; ".join(wrong))
 
 
 def sampler_calls(cfg: Config, one_step: bool, n_steps=None) -> tuple:
@@ -1132,12 +1275,7 @@ def drive_main_path(cfg: Config, fn, inputs, *, device, n_calls: int,
     counts = kernel_counts(device)
     if device.type == "cuda":
         check_no_plain_on_card(f"{n_frames}-frame path")
-    wrong = [f"{name}: {n} calls in {n_calls} synthesis calls, expected "
-             f"{expect.get(name, 0)} each" for name, n in counts.items()
-             if (name in expect and expect[name] == 0)
-             or n != expect.get(name, 0) * n_calls]
-    if wrong:
-        raise AssertionError("; ".join(wrong))
+    check_counts("synthesis", counts, expect, n_calls)
     B = inputs[0].shape[0]
     if with_vocoder:
         n_up = int(np.prod(cfg.model.vocoder.upsample_rates))
@@ -1666,6 +1804,264 @@ def phase_train(card: str) -> dict:
             "inputs": ()}
 
 
+# ---------------------------------------------------------------------------
+# serving (acceptance level 5) and the numerics gate (level 1)
+# ---------------------------------------------------------------------------
+
+def serve_config(*, with_vocoder: bool = False, batch: int = 32,
+                 dtype: str = "bfloat16") -> Config:
+    """Acceptance level 5 at full size (``acceptance.py:115-118`` and
+    ``:159-162``): 256 phonemes, buckets of 256, 512 and 1024 frames, batch
+    32, 1-step, mel only (with the vocoder, as ``configs/pod_v5e16.toml``
+    serves, when asked), bf16."""
+    return Config(model=ModelConfig(max_text_len=256, max_frames=1024),
+                  runtime=RuntimeConfig(compute_dtype=dtype),
+                  serve=ServeConfig(batch_size=batch, one_step=True,
+                                    with_vocoder=with_vocoder,
+                                    frame_buckets=(256, 512, 1024)))
+
+
+def serve_requests(cfg: Config, n: int, *, seed: int = 0,
+                   est_frames=None) -> list[Request]:
+    """Level 5's draws (``acceptance.py:179-188``, ``default_rng(seed)``):
+    for each request 3 s of reference noise, then its frame estimate in
+    [32, max_frames) (or ``est_frames[i]``); then, from the same generator,
+    random ARPAbet phonemes, as many as should fill the estimate at
+    ``SERVE_FRAMES_PER_PHONEME`` (level 5's one fixed text would fill a
+    few dozen frames of every bucket, and audio-s/s would measure padding)."""
+    rng = np.random.default_rng(seed)
+    sr = cfg.model.audio.sample_rate
+    arpabet = text_utils.SYMBOLS[5:44]
+    reqs = []
+    for i in range(n):
+        ref = rng.standard_normal(3 * sr).astype(np.float32) * 0.1
+        est = int(rng.integers(32, cfg.model.max_frames))
+        if est_frames is not None:
+            est = int(est_frames[i])
+        n_ph = int(np.clip(round(est / SERVE_FRAMES_PER_PHONEME) - 2, 1,
+                           cfg.model.max_text_len - 2))
+        ids = text_utils.phonemes_to_ids(
+            [arpabet[j] for j in rng.integers(0, len(arpabet), n_ph)])
+        reqs.append(Request(uid=i, phonemes=np.asarray(ids, np.int32),
+                            ref_wav=ref, est_frames=est))
+    return reqs
+
+
+def serve_expected_counts(cfg: Config, plan, n_requests: int) -> dict:
+    """Kernel launches of one ``serve_batch`` call as the bucket plan
+    predicts: each bucket's batches run the synthesis path at the bucket's
+    frames (bucket 256's decoder attention through row 2, longer ones
+    through row 1), and the style exchange runs the prompt encoder once per
+    chunk of 64 references."""
+    expect: dict[str, int] = {}
+    for bucket, n_batches in plan.batches_per_bucket.items():
+        per = expected_counts(cfg, bucket, one_step=cfg.serve.one_step,
+                              n_steps=cfg.serve.n_steps,
+                              with_vocoder=cfg.serve.with_vocoder)
+        for name, n in per.items():
+            expect[name] = expect.get(name, 0) + n_batches * n
+    n_chunks = -(-n_requests // Server._STYLE_CHUNK)
+    expect["full_attention"] += n_chunks * (
+        cfg.model.prompt_encoder.n_layers + 1)
+    return expect
+
+
+def drive_serve(server: Server, reqs: list[Request], *, n_calls: int,
+                label: str, card: str) -> dict:
+    """``n_calls`` ``serve_batch`` calls, each timed to its end, with the
+    kernel counts set to 0 just before and read just after; check the
+    launches against the bucket plan, no plain version on the card, no
+    requeue, every request served once with a finite mel, and the batches
+    served per bucket against the plan."""
+    cfg = server.cfg
+    s, a = cfg.serve, cfg.model.audio
+    on_card = server.device.type == "cuda"
+    plan = server.plan(reqs)
+    expect = serve_expected_counts(cfg, plan, len(reqs))
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    server.requeued = []
+    times = []
+    reset_counts()
+    for _ in range(n_calls):
+        t0 = time.perf_counter()
+        results = server.serve_batch(reqs)
+        if on_card:
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts = kernel_counts(server.device)
+    if on_card:
+        check_no_plain_on_card(label)
+    check_counts(label, counts, expect, n_calls)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
+    est = {r.uid: r.est_frames for r in reqs}
+    bucket_of = {uid: bucketing.bucket_for(e, s.frame_buckets)
+                 for uid, e in est.items()}
+    got: dict[int, int] = {}
+    for r in results:
+        got[bucket_of[r.uid]] = got.get(bucket_of[r.uid], 0) + 1
+        if r.mel.shape != (r.frames, a.n_mels) or \
+                not np.isfinite(r.mel).all():
+            raise AssertionError(f"{label}: uid {r.uid} mel {r.mel.shape} "
+                                 f"for {r.frames} frames, or not finite")
+    served = {b: -(-n // s.batch_size) for b, n in sorted(got.items())}
+    matches = served == plan.batches_per_bucket and not server.requeued
+    if sorted(r.uid for r in results) != sorted(est) or not matches:
+        raise AssertionError(f"{label}: served {len(results)} of {len(reqs)}, "
+                             f"requeued {len(server.requeued)}, batches "
+                             f"{served} against the plan "
+                             f"{plan.batches_per_bucket}")
+    sec = float(np.median(times))
+    ms = [t * 1e3 for t in times]
+    frames = [r.frames for r in results]
+    full = sum(r.frames >= bucket_of[r.uid] for r in results)
+    served_s = sum(frames) * a.hop_length / a.sample_rate
+    padded_s = sum(bucket_of[r.uid] for r in results) * a.hop_length \
+        / a.sample_rate
+    print(f"  {label}: {len(reqs)} requests, {sec * 1e3:.1f} ms/call "
+          f"(median of {n_calls}, min {min(ms):.1f}, max {max(ms):.1f}), "
+          f"{len(reqs) / sec:.1f} requests/s, served audio-s/s "
+          f"{served_s / sec:.1f} ({served_s:.1f} audio-s a call), padded "
+          f"audio-s/s {padded_s / sec:.1f} ({padded_s:.1f} s of buckets), "
+          f"peak memory {peak_gb:.2f} GB  [{card}]")
+    print(f"    frames {min(frames)}..{max(frames)}; {full} requests filled "
+          f"or overflowed their bucket; plan_batches "
+          f"{dict(sorted(plan.batches_per_bucket.items()))}, served_batches "
+          f"{served}, plan_matches_served {matches}, requeued "
+          f"{len(server.requeued)}; kernel launches per call "
+          f"{ {k: n / n_calls for k, n in counts.items() if n} } (as the "
+          f"plan predicts); no plain version on the card")
+    return {"counts": counts, "n_calls": n_calls, "results": results,
+            "seconds": sec}
+
+
+def check_serve_parity(card: str, params) -> None:
+    """fp32 on the card (the kernels, TF32 off) against fp32 on the CPU
+    (the plain versions): 8 requests over the 256 and 512 buckets at batch
+    4, the same weights, requests and initial noise (the two devices'
+    generators draw different numbers from one seed).  Per uid the frames
+    equal and the mel within ``FP32_PATH_TOL``; the style table within
+    ``STYLE_TOL``; the dispatch order equal."""
+    cfg = serve_config(batch=4, dtype="float32")
+    st = cfg.model.style
+    reqs = serve_requests(cfg, 8, seed=PARITY_SEED,
+                          est_frames=(150, 480, 200, 300, 100, 500, 250, 400))
+    noise = torch.randn(cfg.serve.batch_size, st.n_codes, st.d_style,
+                        generator=torch.Generator().manual_seed(PARITY_SEED))
+    t0 = time.perf_counter()
+    cpu = Server(cfg, params, device="cpu", noise=noise)
+    ref = cpu.serve_batch(reqs)
+    t_cpu = time.perf_counter() - t0
+    reset_counts()
+    card_server = Server(cfg, params, device="cuda", noise=noise)
+    got = card_server.serve_batch(reqs)
+    check_no_plain_on_card("serve fp32 card path")
+    if cpu.requeued or card_server.requeued:
+        raise AssertionError("serve fp32 parity: a batch was requeued")
+    order, ref_order = [r.uid for r in got], [r.uid for r in ref]
+    style_err = float(np.abs(card_server.last_style_table
+                             - cpu.last_style_table).max())
+    by_uid = {r.uid: r for r in ref}
+    frames_equal = all(r.frames == by_uid[r.uid].frames for r in got)
+    mel_err = max(float(np.abs(r.mel - by_uid[r.uid].mel).max())
+                  for r in got if r.frames == by_uid[r.uid].frames)
+    print(f"  serve fp32 card vs fp32 CPU plain path, 8 requests in buckets "
+          f"256 and 512 at batch 4: dispatch order equal: "
+          f"{order == ref_order} {order}, frames equal: {frames_equal} "
+          f"{[r.frames for r in got]}, mel max_abs_err {mel_err:.2e} (tol "
+          f"{FP32_PATH_TOL:.0e}), style table max_abs_err {style_err:.2e} "
+          f"(tol {STYLE_TOL:.0e}; CPU run {t_cpu:.1f} s)")
+    if order != ref_order or not frames_equal:
+        raise AssertionError("serve fp32 card vs CPU: dispatch order or "
+                             "frames differ")
+    if not (mel_err <= FP32_PATH_TOL and style_err <= STYLE_TOL):
+        raise AssertionError(f"serve fp32 card vs CPU: mel {mel_err}, style "
+                             f"table {style_err}")
+
+
+def phase_serve(card: str) -> dict:
+    """Level 5 at full size: (a) 256 requests, a warm-up call and the
+    median of 5; (b) the contract's 4096 requests, once; (c) 256 requests
+    with the vocoder, once; then the fp32 card-vs-CPU check."""
+    cfg = serve_config()
+    a = cfg.model.audio
+    params = init_params(cfg, seed=0, device="cpu")
+    params["acoustic"]["duration_predictor.out.bias"].fill_(DURATION_BIAS)
+    server = Server(cfg, params, device="cuda")
+    reqs = serve_requests(cfg, 256)
+    server.serve_batch(reqs)                          # warm-up
+    res = {"serve": drive_serve(server, reqs, n_calls=5,
+                                label="serve 256 (mel)", card=card)}
+    big = serve_requests(cfg, cfg.serve.max_global_batch)
+    res["serve_4096"] = drive_serve(server, big, n_calls=1,
+                                    label="serve 4096 (mel)", card=card)
+    del big
+    voc = Server(serve_config(with_vocoder=True), params, device="cuda")
+    r = drive_serve(voc, reqs, n_calls=1,
+                    label="serve 256 with the vocoder (first call)",
+                    card=card)
+    n_up = int(np.prod(cfg.model.vocoder.upsample_rates))
+    est = {q.uid: q.est_frames for q in reqs}
+    bad = []
+    for x in r["results"]:
+        bucket = bucketing.bucket_for(est[x.uid], cfg.serve.frame_buckets)
+        n_wav = min(x.frames * a.hop_length,
+                    (bucket * n_up - 1) * cfg.model.vocoder.istft_hop)
+        if x.wav is None or x.wav.shape != (n_wav,) or \
+                not np.isfinite(x.wav).all():
+            bad.append(x.uid)
+    print(f"    every waveform finite and frames x {a.hop_length} samples "
+          f"long (cut to the vocoder's (bucket x {n_up} - 1) x "
+          f"{cfg.model.vocoder.istft_hop} where a request fills its bucket): "
+          f"{not bad}")
+    if bad:
+        raise AssertionError(f"serve with the vocoder: uids {bad[:10]}")
+    res["serve_vocoder"] = r
+    for r in res.values():
+        del r["results"]                  # 4096 requests' mels: ~1 GB
+    check_serve_parity(card, params)
+    res["server"], res["reqs"] = server, reqs
+    return res
+
+
+def verify_expected_counts(cfg: Config, n_frames: int) -> dict:
+    """Kernel launches of one run of the gate's program: the synthesis
+    path's with the vocoder, without the prompt encoder and the denoiser
+    (the style and the durations are given)."""
+    m = cfg.model
+    expect = expected_counts(cfg, n_frames)
+    expect["full_attention"] -= (m.prompt_encoder.n_layers + 1
+                                 + 2 * m.diffusion.n_layers)
+    return expect
+
+
+def phase_verify(card: str) -> dict:
+    """Level 1 at full size: ``run_verification(max_frames=256, batch=1,
+    device="cuda")``, with the duration head's bias set so the 64 phonemes
+    fill most of the 256 frames; its report, no plain version on the card,
+    the launches of its two card runs, and its gates."""
+    cfg = Config(model=ModelConfig(max_text_len=64, max_frames=256),
+                 runtime=RuntimeConfig(compute_dtype="float32"))
+    params = init_params(cfg, seed=0, device="cpu")
+    params["acoustic"]["duration_predictor.out.bias"].fill_(
+        VERIFY_DURATION_BIAS)
+    reset_counts()
+    rep = run_verification(max_frames=256, batch=1, device="cuda",
+                           params=params)
+    counts = kernel_counts(torch.device("cuda"))
+    check_no_plain_on_card("verify")
+    check_counts("verify", counts, verify_expected_counts(cfg, 256), 2)
+    print(f"  {json.dumps(rep)}")
+    print(f"  kernel launches per card run (fp32 and bf16): "
+          f"{ {k: n / 2 for k, n in counts.items() if n} }; no plain "
+          f"version on the card  [{card}]")
+    if not (rep["pass_fp32"] and rep["pass_bf16"]
+            and rep["fp32_kernels"]["dur_match"] == 1.0):
+        raise AssertionError(f"verify: gate failed {rep}")
+    return {"counts": counts, "n_calls": 2}
+
+
 def _profiled_call(fn, inputs, *, record_shapes: bool):
     """One call of ``fn`` under ``torch.profiler``: (profile, wall us)."""
     from torch.profiler import ProfilerActivity, profile
@@ -1730,6 +2126,8 @@ def main() -> None:
         phase_build()
     with phase("kernels"):
         checks = phase_kernel_checks(card)
+    with phase("istft_head"):
+        istft_head = phase_istft_head(card)
     with phase("main path"):
         main_res = phase_main_path(card)
     with phase("profile"):
@@ -1750,11 +2148,22 @@ def main() -> None:
     with phase("profile train_stage1"):
         phase_profile(train["fn"], train["inputs"], card,
                       "stage-1 train step, batch 16 x 1024")
+    with phase("serve"):
+        serve = phase_serve(card)
+    with phase("profile serve"):
+        server, reqs = serve.pop("server"), serve.pop("reqs")
+        phase_profile(lambda: server.serve_batch(reqs), (), card,
+                      "serve 256 requests (mel)")
+    with phase("verify"):
+        verify = phase_verify(card)
     paths = {"one_step": (main_res["counts"], main_res["n_calls"]),
              "multi_step": (multi["counts"], multi["n_calls"]),
              "long_form": (lf["counts"], lf["n_calls"]),
              "long_form_2048": (longf[2048]["counts"], longf[2048]["n_calls"]),
-             "train_stage1": (train["counts"], train["n_calls"])}
+             "train_stage1": (train["counts"], train["n_calls"]),
+             **{name: (r["counts"], r["n_calls"]) for name, r in serve.items()},
+             "verify": (verify["counts"], verify["n_calls"]),
+             "istft_head": (istft_head["counts"], istft_head["n_calls"])}
     kernels = []
     for name, c in checks.items():
         src, replaces = SOURCES[name]

@@ -7,7 +7,9 @@ headers are compiled, so the build takes as long as the slowest source.  The lib
 ``build/`` at the repository root (listed in ``.gitignore``), named by a
 hash of the sources and flags, so an unchanged tree loads the library it
 already built.  Nothing here runs at import time: the first kernel launch
-calls ``library()``.
+calls ``library()``.  A failed build or launch raises ``KernelError``, which
+is not a ``RuntimeError``: the server requeues a batch on a runtime error,
+and must never requeue a kernel fault.
 """
 from __future__ import annotations
 
@@ -61,6 +63,9 @@ _SIGNATURES = {
     "full_attention_fwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
                            ctypes.c_float, _P],
+    # real, imag, syn, inv_env, out, B, F, n_fft, hop, frames per block,
+    # basis in shared memory (0/1), stream
+    "istft_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, den_cond, den_uncond, x_out, d_out, n, s_cur, s_next - s_cur,
     # guidance, stream
     "sampler_euler_fwd": [_P, _P, _P, _P, _P, _L, _F, _F, _F, _P],
@@ -76,6 +81,11 @@ _SIGNATURES = {
     "conv_transpose_fwd": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L,
                            _L, _I, _F, _P],
 }
+
+
+class KernelError(Exception):
+    """A kernel that could not be built (no nvcc, a compile or link error)
+    or whose launch returned a CUDA error."""
 
 
 @dataclass(frozen=True)
@@ -96,8 +106,8 @@ def nvcc() -> str:
         return str(cand)
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels can only be "
-                           "built on a machine with the CUDA toolkit")
+        raise KernelError("nvcc not found: the CUDA kernels can only be "
+                          "built on a machine with the CUDA toolkit")
     return found
 
 
@@ -127,14 +137,14 @@ def library() -> KernelLibrary:
         logs = [proc.communicate()[0] for proc in procs]
         log = "".join(logs)
         if any(proc.returncode for proc in procs):
-            raise RuntimeError(f"nvcc failed:\n{log}")
+            raise KernelError(f"nvcc failed:\n{log}")
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
         proc = subprocess.run([nvcc(), "-shared", "-o", str(tmp),
                                *map(str, objs)], capture_output=True,
                               text=True)
         log += proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc link failed:\n{log}")
+            raise KernelError(f"nvcc link failed:\n{log}")
         os.replace(tmp, path)
         for obj in objs:
             obj.unlink()
@@ -150,4 +160,4 @@ def library() -> KernelLibrary:
 def check(rc: int, name: str) -> None:
     """Raise if a kernel's C entry point returned a CUDA error."""
     if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc}")
+        raise KernelError(f"{name}: CUDA error {rc}")

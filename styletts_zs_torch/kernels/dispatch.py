@@ -1,11 +1,12 @@
 """Routing between the hand-written kernels and their plain versions.
 
-Counterpart of ``styletts_zs_tpu/kernels/dispatch.py``.  Seven ops go to a
+Counterpart of ``styletts_zs_tpu/kernels/dispatch.py``.  Eight ops go to a
 kernel written by hand for the card: chunk-local attention, the fused
 AdaIN conv pass and the fused synthesis head (Pallas on the JAX synthesis
 path, or its parity route for the AdaIN pass), full attention, the
-transposed conv (both of which JAX sends to its XLA twin), and the
-sampler's Euler step and Heun correction.  The device of the tensor
+transposed conv (both of which JAX sends to its XLA twin), the sampler's
+Euler step and Heun correction, and the standalone iSTFT (``istft_head``,
+which no model path calls, as in JAX).  The device of the tensor
 decides, nothing else: a CUDA tensor launches the kernel or the wrapper
 raises, a CPU tensor takes the kernel's plain version (counted in
 ``plain_calls``).  No shape gate of the JAX package is copied: those are
@@ -17,10 +18,10 @@ Training: where grad is enabled and an input requires it, the ops go through
 their ``torch.autograd.Function``s.  Chunk-local attention and the AdaIN
 conv block have dedicated backward kernels, as in JAX (the forward that
 saves the log-sum-exp, row 3; dq and dk/dv, rows 4 and 5; the conv's
-backward-data with silu', row 7); full attention, the transposed conv and
-the synthesis head take their kernel forward and the gradient of their twin
-in ``ops/`` backward (counted in ``plain.twin_vjp_calls``).  Under
-``torch.inference_mode()`` or ``no_grad`` every op launches what it
+backward-data with silu', row 7); full attention, the transposed conv, the
+synthesis head and the iSTFT take their kernel forward and the gradient of
+their twin in ``ops/`` backward (counted in ``plain.twin_vjp_calls``).
+Under ``torch.inference_mode()`` or ``no_grad`` every op launches what it
 launched before.
 """
 from __future__ import annotations
@@ -30,6 +31,7 @@ import torch
 from styletts_zs_torch.kernels import adain_conv as ac_kernel
 from styletts_zs_torch.kernels import conv_transpose as ct_kernel
 from styletts_zs_torch.kernels import full_attention as fa_kernel
+from styletts_zs_torch.kernels import istft as istft_kernel
 from styletts_zs_torch.kernels import local_attention as la_kernel
 from styletts_zs_torch.kernels import sampler as sampler_kernel
 from styletts_zs_torch.kernels import synthesis_head as head_kernel
@@ -41,7 +43,7 @@ plain_calls = {"local_attention": 0, "synthesis_head": 0, "full_attention": 0,
                "sampler_euler": 0, "sampler_heun": 0, "adain_conv": 0,
                "conv_transpose": 0, "local_attention_fwd_lse": 0,
                "local_attention_bwd_dq": 0, "local_attention_bwd_dkv": 0,
-               "adain_conv_bwd_data": 0}
+               "adain_conv_bwd_data": 0, "istft": 0}
 
 
 def _route(name: str, x: torch.Tensor, cuda_fn, plain_fn):
@@ -171,3 +173,13 @@ def synthesis_head(x, w, b, *, n_fft: int, hop: int) -> torch.Tensor:
     if _needs_grad(x, w, b):
         return head_kernel.SynthesisHead.apply(x, w, b, n_fft, hop, fwd)
     return fwd(x, w, b, n_fft=n_fft, hop=hop)
+
+
+def istft_head(real, imag, *, n_fft: int, hop: int) -> torch.Tensor:
+    """Centred iSTFT overlap-add (window n_fft): real/imag (B, F, n_freq)
+    -> (B, (F-1)*hop) fp32 waveform."""
+    fwd = _route("istft", real, istft_kernel.istft_cuda,
+                 istft_kernel.istft_plain)
+    if _needs_grad(real, imag):
+        return istft_kernel.ISTFT.apply(real, imag, n_fft, hop, fwd)
+    return fwd(real, imag, n_fft=n_fft, hop=hop)

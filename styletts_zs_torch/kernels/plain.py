@@ -7,10 +7,11 @@ or a route that should not exist.  ``chip_smoke.py`` empties ``cuda_calls``
 before each card path and fails unless it is still empty after it.
 
 Where JAX has no backward kernel (full attention, the transposed conv, the
-synthesis head), the op's ``autograd.Function`` takes the gradient of its
-twin in ``ops/``, as JAX's custom VJPs do (``dispatch.py:100-121``,
-``:223-244``, ``:314-333``); ``twin_vjp`` counts those calls, on any device,
-in ``twin_vjp_calls``, apart from ``cuda_calls``.
+synthesis head, the standalone iSTFT), the op's ``autograd.Function`` takes
+the gradient of its twin in ``ops/``, as JAX's custom VJPs do
+(``dispatch.py:100-121``, ``:223-244``, ``:264-284``, ``:314-333``);
+``twin_vjp`` counts those calls, on any device, in ``twin_vjp_calls``, apart
+from ``cuda_calls``.
 """
 from __future__ import annotations
 

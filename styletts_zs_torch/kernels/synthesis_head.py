@@ -59,7 +59,7 @@ def synthesis_head_plain(x, w, b, *, n_fft: int, hop: int) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=16)
-def _constants(n_fft: int, hop: int, T: int, device: torch.device):
+def ola_constants(n_fft: int, hop: int, T: int, device: torch.device):
     """Synthesis basis and inverse envelope, built in numpy, on the card."""
     syn = stft_ops.istft_synthesis_basis(n_fft, n_fft)
     inv_env = stft_ops.istft_inverse_envelope(n_fft, hop, T)
@@ -88,7 +88,7 @@ def synthesis_head_cuda(x, w, b, *, n_fft: int, hop: int) -> torch.Tensor:
                          f"hop={hop} K={K} T={T}")
     wt = w.to(device=x.device, dtype=x.dtype).contiguous()
     bt = b.to(device=x.device, dtype=x.dtype).contiguous()
-    syn, inv_env = _constants(n_fft, hop, T, x.device)
+    syn, inv_env = ola_constants(n_fft, hop, T, x.device)
     out = torch.empty(B, (T - 1) * hop, dtype=torch.float32, device=x.device)
     lib = build.library().lib
     rc = lib.synthesis_head_fwd(

@@ -34,7 +34,7 @@ BLOCKED_RUN = textwrap.dedent('''
     import torch
     assert not torch.cuda.is_available()
     from styletts_zs_torch.config import tiny_test_config
-    from styletts_zs_torch.pipelines import factory, infer, train
+    from styletts_zs_torch.pipelines import factory, infer, serve, train, verify
     cfg = tiny_test_config()
     params = factory.init_params(cfg, device="cpu", with_discriminator=True)
     calls = {
@@ -44,6 +44,8 @@ BLOCKED_RUN = textwrap.dedent('''
         "make_fixed_style_fn": lambda: infer.make_fixed_style_fn(cfg, params),
         "Synthesizer": lambda: infer.Synthesizer(cfg, params),
         "Stage1Trainer": lambda: train.Stage1Trainer(cfg, params),
+        "Server": lambda: serve.Server(cfg, params),
+        "run_verification": lambda: verify.run_verification(),
     }
     for name, call in calls.items():
         try:

@@ -207,7 +207,9 @@ def test_chip_smoke_main_path_rehearsal_on_cpu():
                            "local_attention_fwd_lse": 0,
                            "local_attention_bwd_dq": 0,
                            "local_attention_bwd_dkv": 0,
-                           "adain_conv_bwd_data": 0}
+                           "adain_conv_bwd_data": 0,
+                           # no model path calls the standalone iSTFT
+                           "istft": 0}
     assert int(r["out"].frame_lengths.min()) > 0
     # a count off its expectation fails the run: a 32-frame path is one
     # chunk, where the decoder's attention is full attention, but the

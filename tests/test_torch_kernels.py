@@ -22,6 +22,7 @@ from styletts_zs_torch.kernels import adain_conv as ac
 from styletts_zs_torch.kernels import build, dispatch, plain
 from styletts_zs_torch.kernels import conv_transpose as ct
 from styletts_zs_torch.kernels import full_attention as fa
+from styletts_zs_torch.kernels import istft as istft_k
 from styletts_zs_torch.kernels import local_attention as la
 from styletts_zs_torch.kernels import synthesis_head as head
 from styletts_zs_torch.ops import attention as attn_ops
@@ -318,7 +319,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 def test_build_lists_every_source_and_names_the_target():
     names = [p.name for p in build.sources()]
     assert names == ["adain_conv.cu", "adain_conv_bwd.cu",
-                     "conv_transpose.cu", "full_attention.cu",
+                     "conv_transpose.cu", "full_attention.cu", "istft.cu",
                      "local_attention.cu", "local_attention_bwd.cu",
                      "sampler.cu", "synthesis_head.cu"]
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
@@ -586,3 +587,71 @@ def test_training_wrappers_refuse_cpu_tensors():
     mean, rstd = ac.instance_stats(x)
     with pytest.raises(ValueError):
         ac.adain_conv_bwd_data_cuda(dc, x, s, b, mean, rstd, w, dilation=1)
+
+
+# --- row 11: the standalone iSTFT overlap-add --------------------------------
+
+
+def _spectra(n_fft, B=2, F=100, seed=70):
+    n_freq = n_fft // 2 + 1
+    return rnd(B, F, n_freq, seed=seed), rnd(B, F, n_freq, seed=seed + 1)
+
+
+@pytest.mark.parametrize("n_fft,hop", [(16, 4), (48, 12)])
+def test_istft_plain_and_dispatch_match_pallas(n_fft, hop):
+    """Row 11's plain version and ``dispatch.istft_head`` on CPU tensors
+    against ``istft_pallas`` in interpret mode (the super-frame kernel),
+    within 2e-5 as the JAX package holds the kernel against its twin."""
+    real, imag = _spectra(n_fft)
+    ref = vocoder_kernels.istft_pallas(jnp.asarray(real), jnp.asarray(imag),
+                                       n_fft=n_fft, hop=hop)
+    before = dispatch.plain_calls["istft"]
+    launches = istft_k.launches
+    out = dispatch.istft_head(t(real), t(imag), n_fft=n_fft, hop=hop)
+    assert dispatch.plain_calls["istft"] == before + 1
+    assert istft_k.launches == launches and not plain.cuda_calls
+    assert out.shape == ref.shape == (2, 99 * hop) and out.dtype == torch.float32
+    np.testing.assert_allclose(n(out), n(ref), atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(
+        n(istft_k.istft_plain(t(real), t(imag), n_fft=n_fft, hop=hop)),
+        n(ref), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("n_fft,hop", [(16, 4), (48, 12)])
+def test_istft_function_matches_jax_custom_vjp(n_fft, hop):
+    """``ISTFT`` (through ``dispatch.istft_head`` with grad on) against
+    ``jax.vjp`` of JAX's ``istft_head(use_pallas=True)``: the Pallas
+    forward, the twin's gradient backward; one twin backward counted."""
+    real, imag = _spectra(n_fft, F=40, seed=72)
+    g = rnd(2, 39 * hop, seed=74)
+    out_j, vjp = jax.vjp(
+        lambda r, i: j_dispatch.istft_head(r, i, n_fft=n_fft, hop=hop,
+                                           use_pallas=True),
+        jnp.asarray(real), jnp.asarray(imag))
+    xs = [t(a).requires_grad_() for a in (real, imag)]
+    twins = plain.twin_vjp_calls.get("istft", 0)
+    out = dispatch.istft_head(*xs, n_fft=n_fft, hop=hop)
+    np.testing.assert_allclose(n(out), n(out_j), atol=2e-5, rtol=2e-5)
+    grads = torch.autograd.grad(out, xs, t(g))
+    assert plain.twin_vjp_calls["istft"] == twins + 1
+    for got, ref in zip(grads, vjp(jnp.asarray(g))):
+        np.testing.assert_allclose(n(got), n(ref), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("n_fft,hop,FT,syn_shared", [
+    (48, 12, 64, True), (16, 4, 64, True), (2048, 300, 22, False),
+    (512, 100, 64, False), (48, 1, 64, True), (8, 16, 64, True)])
+def test_istft_launch_geometry(n_fft, hop, FT, syn_shared):
+    """Frames per block and where the basis lies: the spectra of FT + M - 1
+    frames (and the basis, when it takes at most half) fit in 227 KB."""
+    assert istft_k.launch_geometry(n_fft, hop) == (FT, syn_shared)
+    row, M = 8 * (n_fft // 2 + 1), (n_fft - 1) // hop + 1
+    assert (FT + M - 1) * row + syn_shared * row * n_fft <= 227 * 1024
+
+
+def test_istft_wrapper_refuses_what_it_cannot_take():
+    real, imag = _spectra(48, F=10)
+    with pytest.raises(ValueError):            # CPU tensors
+        istft_k.istft_cuda(t(real), t(imag), n_fft=48, hop=12)
+    with pytest.raises(ValueError):            # one sample's frames too wide
+        istft_k.launch_geometry(2048, 1)

@@ -191,7 +191,7 @@ def test_sample_matches_jax(diffusion_world, use_pallas):
                      "conv_transpose": 0, "local_attention_fwd_lse": 0,
                      "local_attention_bwd_dq": 0,
                      "local_attention_bwd_dkv": 0,
-                     "adain_conv_bwd_data": 0}
+                     "adain_conv_bwd_data": 0, "istft": 0}
 
 
 def test_sample_one_step_schedule_and_generator_noise(diffusion_world):
@@ -249,7 +249,8 @@ def test_chip_smoke_multistep_rehearsal_on_cpu():
                              "sampler_euler": 3, "sampler_heun": 2,
                              "adain_conv": 4}
     assert r["counts"] == {**r["per_call"], "synthesis_head": 0,
-                           "conv_transpose": 0, **TRAIN_KERNELS_UNUSED}
+                           "conv_transpose": 0, "istft": 0,
+                           **TRAIN_KERNELS_UNUSED}
     assert r["wav"] is None and int(r["out"].frame_lengths.min()) > 0
     # the 1-step program driven as the multi-step path: the sampler
     # kernels are launched no time, so the run fails
