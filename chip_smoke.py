@@ -8,8 +8,10 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 Phases, one line each with its seconds:
   1. device     — requires CUDA; prints the card's name and power limit;
   2. build      — compiles ``styletts_zs_torch/csrc/*.cu``, one nvcc per
-                  source, all started together (``-Xptxas -v`` register and
-                  shared-memory lines printed);
+                  source, all started together (``-Xptxas -v`` register,
+                  shared-memory and spill lines printed; for the bf16
+                  forwards of rows 1 and 2, ``attention_fwd_sm90.cuh``,
+                  their dynamic shared memory and blocks per SM);
   3. kernels    — each hand-written kernel against its plain PyTorch
                   version at the main paths' shapes, fp32 and bf16, masked
                   and unmasked, with kernel / plain / library times from
@@ -17,8 +19,10 @@ Phases, one line each with its seconds:
                   AdaIN conv pass and the transposed conv at the long-form
                   and the 1-step batch-32 shapes, chunk-local attention
                   also at 256 and 512 frames (the first through the
-                  full-attention kernel), and the cuDNN kernels that the
-                  library calls of the two convs launch;
+                  full-attention kernel), full attention in bf16 also at
+                  Tk 272 with the denoiser's mask and Tq 50 and 16, and
+                  the cuDNN kernels that the library calls of the two convs
+                  launch;
   4. main path  — zero-shot 1-step synthesis with the vocoder at full width
                   (``bench.py``'s configuration: 256 phonemes, 1024 frames,
                   bf16, weights from a seed) at batch 1 and 32, checking the
@@ -70,10 +74,21 @@ Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result; without a CUDA device it stops in
 phase 1.  It imports nothing of JAX.
+
+    python3 chip_smoke.py --against build/parent
+
+runs phases 1 and 2 and then only times rows 1 and 2 in bf16, at every
+shape the paths launch them, against the kernels of another tree unpacked
+at that directory (``git archive <commit> | tar -x -C build/parent``; its
+``kernels/build.py`` builds them into its own ``build/``), each held
+against the plain version, in turns (parent, this, this, parent).
 """
 from __future__ import annotations
 
+import argparse
+import ctypes
 import dataclasses
+import importlib.util
 import json
 import subprocess
 import sys
@@ -163,6 +178,11 @@ TOL = {
     # row 7: row 6's sums (2 560 products, |y| up to ~5) times silu'
     "adain_conv_bwd_data": {torch.float32: (1e-4, 1e-4),
                             torch.bfloat16: (1e-2, 1e-2)},
+    # rows 1 and 2 (bf16) on a row with no valid key: every key at weight 1,
+    # no scores, so the kernel's output is the fp32 mean of v rounded once to
+    # bf16 (2^-8 relative); held against that mean, not the plain version,
+    # which rounds the weights 1/W to bf16 first
+    "attention_no_valid_key": {torch.bfloat16: (1e-5, 2 ** -8)},
     # row 11: each sample sums 4 frames x 50 basis products (|wav| < ~2)
     # in one fp32 accumulator, the plain version as a cuBLAS product and
     # then the overlap-add (~1e-7 relative apart); the gradient (its twin's,
@@ -340,12 +360,27 @@ def phase_device() -> str:
 
 
 def phase_build() -> build.KernelLibrary:
+    """Build the library and print each kernel's ``-Xptxas -v`` lines (entry,
+    registers, spills); for the bf16 forwards of rows 1 and 2
+    (``attention_fwd_sm90.cuh``), their dynamic shared memory a block and
+    blocks per SM from the occupancy API."""
     lib = build.library()
     print(f"built {lib.path.name} in {lib.build_seconds:.1f} s "
-          f"({len(build.sources())} sources, one nvcc each, in parallel)")
+          f"({len(build.sources())} sources and {len(build.headers())} "
+          f"header, one nvcc per source, in parallel)")
     for line in lib.log.splitlines():
-        if "ptxas info" in line and ("Used" in line or "Compiling" in line):
+        if ("ptxas info" in line and ("Used" in line or "Compiling" in line)) \
+                or "spill stores" in line:
             print("  " + line.strip())
+    blocks, smem = ctypes.c_int(), ctypes.c_int()
+    for label, fn, args in (
+            ("row 1 bf16", lib.lib.local_attention_fwd_occupancy, ()),
+            ("row 2 bf16 at Tk 256", lib.lib.full_attention_fwd_occupancy,
+             (256,))):
+        build.check(fn(*args, ctypes.byref(blocks), ctypes.byref(smem)),
+                    label)
+        print(f"  attn_fwd_sm90_kernel {label}: {smem.value} bytes of "
+              f"dynamic shared memory a block, {blocks.value} blocks per SM")
     return lib
 
 
@@ -371,50 +406,95 @@ def _attention_inputs(dtype, masked: bool, g: torch.Generator,
 
 def _attention_work(lengths: torch.Tensor, T: int, H: int, D: int,
                     chunk: int, itemsize: int):
-    """Bytes and matmul FLOPs this call needs: q/k/v read once, out written
-    once; QK^T and PV over the (query, key) pairs in band and length."""
-    n_bytes = 4 * lengths.numel() * T * H * D * itemsize + 4 * lengths.numel()
-    t = np.arange(T)
-    ci = t // chunk
-    lo = np.maximum((ci - 1) * chunk, 0)
+    """Bytes and matmul FLOPs the function needs.  Per batch row of length
+    L: K for the keys below L; V for those and for the clipped window of
+    each query chunk with no valid key, whose queries average it; Q for the
+    queries of the chunks with a valid key; out written once; the lengths
+    read.  QK^T and PV over the (query, key) pairs in band and length; a
+    chunk with no valid key needs its window's mean alone, no product.  The
+    bf16 kernel walks the key tiles ``la_kernel.valid_key_tiles`` names,
+    which hold every one of these keys."""
+    W = min(3 * chunk, T)
+    c = min(chunk, T)                  # T <= c: one chunk of T queries
+    ci = np.arange(T // c)
+    lo = np.maximum((ci - 1) * chunk, 0)           # the band, clipped
     hi = np.minimum((ci + 2) * chunk, T)
-    pairs = 0
+    s0 = np.clip((ci - 1) * chunk, 0, T - W)       # the window
+    rows = pairs = 0
     for L in lengths.tolist():
-        pairs += int(np.clip(np.minimum(hi, L) - lo, 0, None).sum())
+        L = min(L, T)
+        has_key = np.minimum(hi, L) > lo
+        v_keys = np.arange(T) < L
+        for s in s0[~has_key]:
+            v_keys[s:s + W] = True
+        rows += c * int(has_key.sum()) + L + int(v_keys.sum()) + T
+        pairs += c * int(np.clip(np.minimum(hi, L) - lo, 0, None).sum())
+    n_bytes = rows * H * D * itemsize + 4 * lengths.numel()
     return n_bytes, pairs * H * 4 * D
+
+
+def _time_local_attention(fn, q, k, v, lengths, chunk: int,
+                          label: str) -> dict:
+    """Device times of ``fn`` (the kernel, as the path calls it), the plain
+    version and SDPA on the same bf16 inputs, SDPA with the cheapest mask
+    that computes the function: the dense band-and-length mask above two
+    chunks; below, where the band holds every key, the (B, 1, 1, T) length
+    mask, or none when every length is T.  Then the bound from the bytes
+    and FLOPs the function needs."""
+    B, T, H, D = q.shape
+    ms = cuda_ms(fn)
+    plain_ms = cuda_ms(lambda: la_kernel.local_attention_plain(
+        q, k, v, lengths, chunk=chunk), iters=3)
+    mask = length_mask(lengths, T)[:, None, None, :]
+    if T > 2 * chunk:
+        t = torch.arange(T, device="cuda")
+        band = ((t[:, None] // chunk) - (t[None, :] // chunk)).abs() <= 1
+        mask = band[None, None] & mask
+    elif bool((lengths == T).all()):
+        mask = None
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask), iters=5)
+    n_bytes, flops = _attention_work(lengths.cpu(), T, H, D, chunk, 2)
+    bms, by = bound_ms(n_bytes, flops, BF16_FLOP_PER_S)
+    print(f"  local_attention bf16 B{B} T{T} H{H} D{D} c{chunk} {label}: "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+          f"{library_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": library_ms}
 
 
 def check_local_attention(chunk: int = 256) -> dict:
     g = torch.Generator(device="cuda").manual_seed(1)
-    errs = []
+    errs, inputs = [], {}
     for dtype in (torch.float32, torch.bfloat16):
         for masked in (False, True):
-            q, k, v, lengths = _attention_inputs(dtype, masked, g)
+            q, k, v, lengths = inputs[masked] = _attention_inputs(dtype,
+                                                                  masked, g)
             out = la_kernel.local_attention_cuda(q, k, v, lengths, chunk=chunk)
             ref = la_kernel.local_attention_plain(q, k, v, lengths, chunk=chunk)
             torch.cuda.synchronize()
             errs.append(check_close("local_attention",
                                     "masked" if masked else "full",
                                     dtype, out, ref))
-    # times at the production dtype, masked
-    B, T, H, D = q.shape
-    ms = cuda_ms(lambda: la_kernel.local_attention_cuda(q, k, v, lengths,
-                                                        chunk=chunk))
-    plain_ms = cuda_ms(lambda: la_kernel.local_attention_plain(
-        q, k, v, lengths, chunk=chunk), iters=3)
-    t = torch.arange(T, device="cuda")
-    band = ((t[:, None] // chunk) - (t[None, :] // chunk)).abs() <= 1
-    mask = band[None, None] & length_mask(lengths, T)[:, None, None, :]
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask), iters=5)
-    n_bytes, flops = _attention_work(lengths.cpu(), T, H, D, chunk, 2)
-    bms, by = bound_ms(n_bytes, flops, BF16_FLOP_PER_S)
-    print(f"  local_attention bf16 B{B} T{T} H{H} D{D} c{chunk}: kernel "
-          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, sdpa {library_ms:.3f} ms, "
-          f"bound {bms:.4f} ms ({by})")
-    res = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": bms, "bound_by": by, "library_ms": library_ms}
+    # batch row 0 has length 0: each query chunk averages its clipped window
+    q, k, v, lengths = inputs[True]
+    T = q.shape[1]
+    out = la_kernel.local_attention_cuda(q, k, v, lengths, chunk=chunk)[0]
+    W = min(3 * chunk, T)
+    mean = torch.cat([v[0, s0:s0 + W].float().mean(0).expand(chunk, -1, -1)
+                      for s0 in (max(0, min((ci - 1) * chunk, T - W))
+                                 for ci in range(T // chunk))])
+    check_close("attention_no_valid_key", "local", torch.bfloat16, out, mean)
+    # times at the production dtype, masked (the row's numbers) and not
+    res = {}
+    for masked in (True, False):
+        q, k, v, lengths = inputs[masked]
+        res[masked] = _time_local_attention(
+            lambda: la_kernel.local_attention_cuda(q, k, v, lengths,
+                                                   chunk=chunk),
+            q, k, v, lengths, chunk, "masked" if masked else "unmasked")
+    res = {"max_abs_err": max(errs), **res[True], "unmasked": res[False]}
     short, err = _check_local_attention_short(chunk)
     res["max_abs_err"] = max(res["max_abs_err"], err)
     return {**res, **short}
@@ -424,15 +504,18 @@ def _check_local_attention_short(chunk: int) -> tuple[dict, float]:
     """Below three chunks, through ``dispatch.local_attention`` as the
     decoder calls it: at T 2c the local kernel takes the whole sequence as
     its window; at T c the call is one chunk and launches the full-attention
-    kernel (row 2).  Each against the local kernel's plain version, fp32
-    and bf16, masked and unmasked, batch 32; times at bf16, masked."""
+    kernel (row 2; the 256 bucket's decoder when serving).  Each against the
+    local kernel's plain version, fp32 and bf16, masked and unmasked, batch
+    32; times at bf16, masked and unmasked."""
     g = torch.Generator(device="cuda").manual_seed(6)
     res, errs = {}, []
     for T, kernel_name in ((2 * chunk, "local_attention"),
                            (chunk, "full_attention")):
+        inputs = {}
         for dtype in (torch.float32, torch.bfloat16):
             for masked in (False, True):
-                q, k, v, lengths = _attention_inputs(dtype, masked, g, T=T)
+                q, k, v, lengths = inputs[masked] = _attention_inputs(
+                    dtype, masked, g, T=T)
                 mask = length_mask(lengths, T) if masked else None
                 before = (la_kernel.launches, fa_kernel.launches)
                 out = dispatch.local_attention(q, k, v, chunk=chunk,
@@ -450,22 +533,17 @@ def _check_local_attention_short(chunk: int) -> tuple[dict, float]:
                 errs.append(check_close(
                     "local_attention", f"T{T}{' masked' if masked else ''}",
                     dtype, out, ref))
-        ms = cuda_ms(lambda: dispatch.local_attention(q, k, v, chunk=chunk,
-                                                      kv_mask=mask))
-        plain_ms = cuda_ms(lambda: la_kernel.local_attention_plain(
-            q, k, v, lengths, chunk=chunk), iters=3)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        library_ms = cuda_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask[:, None, None, :]), iters=5)
-        n_bytes, flops = _attention_work(lengths.cpu(), T, 8, 64, chunk, 2)
-        bms, by = bound_ms(n_bytes, flops, BF16_FLOP_PER_S)
-        print(f"  local_attention bf16 B32 T{T} c{chunk} through "
-              f"{kernel_name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"sdpa {library_ms:.4f} ms, bound {bms:.4f} ms ({by})")
-        res[f"T{T}"] = {"kernel": kernel_name, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bms, "bound_by": by,
-                        "library_ms": library_ms}
+        times = {}
+        for masked in (True, False):
+            q, k, v, lengths = inputs[masked]
+            mask = length_mask(lengths, T) if masked else None
+            times[masked] = _time_local_attention(
+                lambda: dispatch.local_attention(q, k, v, chunk=chunk,
+                                                 kv_mask=mask),
+                q, k, v, lengths, chunk, f"through {kernel_name}"
+                + (" masked" if masked else " unmasked"))
+        res[f"T{T}"] = {"kernel": kernel_name, **times[True],
+                        "unmasked": times[False]}
     return res, max(errs)
 
 
@@ -530,14 +608,20 @@ def _full_attention_inputs(B, Tq, Tk, dtype, g, *, n_prompt=0,
 
 
 def _full_attention_work(q, k, mask):
-    """Bytes (q/k/v/mask read once, out written once) and matmul FLOPs over
-    the (query, valid key) pairs; a row with no valid key averages all Tk."""
+    """Bytes and matmul FLOPs the function needs.  Per batch row: K and V
+    for its valid keys and Q for its queries; a row with no valid key
+    averages all Tk values, so it reads V alone and needs no product.  The
+    mask read once, out written once; QK^T and PV over the (query, valid
+    key) pairs.  The bf16 kernel walks the key tiles
+    ``fa_kernel.valid_key_tiles`` names, which hold every one of these
+    keys."""
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
     n_valid = mask.sum(-1).cpu()
-    n_valid = torch.where(n_valid == 0, Tk, n_valid)
-    it = q.element_size()
-    n_bytes = (2 * q.numel() + 2 * k.numel()) * it + mask.numel()
+    has_key = n_valid > 0
+    rows = (Tq * int(has_key.sum()) + 2 * int(n_valid.sum())
+            + Tk * int((~has_key).sum()) + B * Tq)
+    n_bytes = rows * H * D * q.element_size() + mask.numel()
     return n_bytes, 4 * H * D * Tq * int(n_valid.sum())
 
 
@@ -549,12 +633,13 @@ def _time_full_attention(q, k, v, mask, label: str, card: str) -> dict:
     library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask[:, None, None, :]), iters=5)
     rate = FP32_FLOP_PER_S if q.dtype == torch.float32 else BF16_FLOP_PER_S
-    bms, by = bound_ms(*_full_attention_work(q, k, mask), rate)
+    n_bytes, flops = _full_attention_work(q, k, mask)
+    bms, by = bound_ms(n_bytes, flops, rate)
     B, Tq, H, D = q.shape
     print(f"  full_attention {label} B{B} Tq{Tq} Tk{k.shape[1]} H{H} D{D}: "
           f"kernel {ms:.4f} ms (host {host_ms:.4f} ms), plain {plain_ms:.4f} "
-          f"ms, sdpa {library_ms:.4f} ms, bound {bms:.4f} ms ({by})  "
-          f"[{card}]")
+          f"ms, sdpa {library_ms:.4f} ms, bound {bms:.4f} ms ({by})"
+          f"  [{card}]")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": library_ms}
 
@@ -562,7 +647,11 @@ def _time_full_attention(q, k, v, mask, label: str, card: str) -> dict:
 def check_full_attention(card: str) -> dict:
     """The denoiser's self- and cross-attention (fp32, B 64 = the doubled
     batch 32, K 50 codes, 256 text + 16 prompt keys) and the encoders'
-    (bf16, batch 32: text 256, prompt 240 and its 16-query pooling)."""
+    (bf16, batch 32: text 256, prompt 240 and its 16-query pooling); and in
+    bf16 the ragged edges and the mask policy of the Hopper kernel: Tk 272
+    with the denoiser's [text | padding | prompt] mask, a text length of 0
+    and a row with no valid key, at Tq 50 and 16.  The bf16 encoders' shapes
+    are timed beside the fp32 cross-attention."""
     g = torch.Generator(device="cuda").manual_seed(3)
     cases = {
         "den_cross": (64, 50, 272, torch.float32, dict(n_prompt=16)),
@@ -570,12 +659,14 @@ def check_full_attention(card: str) -> dict:
         "text": (32, 256, 256, torch.bfloat16, dict(self_attn=True)),
         "prompt": (32, 240, 240, torch.bfloat16, dict(self_attn=True)),
         "pool": (32, 16, 240, torch.bfloat16, {}),
+        "cross_bf16": (32, 50, 272, torch.bfloat16, dict(n_prompt=16)),
+        "cross_bf16_q16": (32, 16, 272, torch.bfloat16, dict(n_prompt=16)),
     }
     errs, inputs = [], {}
     for label, (B, Tq, Tk, dtype, kw) in cases.items():
         q, k, v, mask = inputs[label] = _full_attention_inputs(
             B, Tq, Tk, dtype, g, **kw)
-        masks = [mask, None] if label == "den_self" else [mask]
+        masks = [mask, None] if label in ("den_self", "text") else [mask]
         for m in masks:
             out = fa_kernel.full_attention_cuda(q, k, v, m)
             ref = fa_kernel.full_attention_plain(q, k, v, m)
@@ -583,9 +674,18 @@ def check_full_attention(card: str) -> dict:
             errs.append(check_close("full_attention",
                                     label + ("" if m is not None else "-nm"),
                                     dtype, out, ref))
+    # rows with no valid key (text: row 0, length 0; cross: row 1, no key
+    # unmasked) average all Tk keys
+    for label, row in (("text", 0), ("cross_bf16", 1)):
+        q, k, v, mask = inputs[label]
+        out = fa_kernel.full_attention_cuda(q, k, v, mask)[row]
+        mean = v[row].float().mean(0).expand_as(out)
+        check_close("attention_no_valid_key", label, torch.bfloat16, out,
+                    mean)
     res = _time_full_attention(*inputs["den_cross"], "fp32 den_cross", card)
-    res["bf16_text"] = _time_full_attention(*inputs["text"], "bf16 text",
-                                            card)
+    for label in ("text", "prompt", "pool"):
+        res[f"bf16_{label}"] = _time_full_attention(*inputs[label],
+                                                    f"bf16 {label}", card)
     res["max_abs_err"] = max(errs)
     return res
 
@@ -2062,6 +2162,107 @@ def phase_verify(card: str) -> dict:
     return {"counts": counts, "n_calls": 2}
 
 
+# ---------------------------------------------------------------------------
+# --against: rows 1 and 2 in bf16 against a parent commit's kernels
+# ---------------------------------------------------------------------------
+
+def _parent_library(parent: Path) -> build.KernelLibrary:
+    """The kernel library of the tree unpacked at ``parent``, built by its
+    own ``kernels/build.py`` into its own ``build/``."""
+    spec = importlib.util.spec_from_file_location(
+        "parent_kernel_build",
+        parent / "styletts_zs_torch" / "kernels" / "build.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod      # dataclasses look their module up
+    spec.loader.exec_module(mod)
+    return mod.library()
+
+
+def _launch_local(lib, q, k, v, lengths, chunk: int) -> torch.Tensor:
+    """``local_attention_fwd`` of ``lib`` on bf16 CUDA q/k/v views."""
+    B, T, H, D = q.shape
+    out = torch.empty(B, T, H, D, dtype=q.dtype, device=q.device)
+    build.check(lib.local_attention_fwd(
+        1, q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), B, T, H, D, chunk,
+        *[st for x in (q, k, v) for st in x.stride()[:3]], D ** -0.5,
+        torch.cuda.current_stream().cuda_stream), "local_attention_fwd")
+    return out
+
+
+def _launch_full(lib, q, k, v, mask) -> torch.Tensor:
+    """``full_attention_fwd`` of ``lib`` on bf16 CUDA q/k/v views."""
+    B, Tq, H, D = q.shape
+    out = torch.empty(B, Tq, H, D, dtype=q.dtype, device=q.device)
+    build.check(lib.full_attention_fwd(
+        1, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+        out.data_ptr(), B, Tq, k.shape[1], H, D,
+        *[st for x in (q, k, v) for st in x.stride()[:3]], mask.stride(0),
+        D ** -0.5, torch.cuda.current_stream().cuda_stream),
+        "full_attention_fwd")
+    return out
+
+
+def phase_against_parent(parent: str, card: str) -> dict:
+    """Rows 1 and 2 in bf16 at every shape the paths launch them: this
+    tree's kernels against those of the tree unpacked at ``parent``, both
+    held against the plain version, then timed in turns (parent, this,
+    this, parent) on the same inputs."""
+    old = _parent_library(Path(parent).resolve())
+    new = build.library()
+    print(f"  parent library {old.path} (built in {old.build_seconds:.1f} "
+          f"s)  [{card}]")
+    entry = ""
+    for line in old.log.splitlines():    # the parent's attention forwards
+        if "Compiling entry" in line:
+            entry = line
+        if "attn_fwd" in entry and ("Used" in line or "spill" in line):
+            print(f"    parent {entry.split()[-3][:70]}: {line.strip()}")
+    g = torch.Generator(device="cuda").manual_seed(9)
+    chunk = 256
+    cases = []
+    for T in (1024, 512):
+        for masked in (True, False):
+            q, k, v, lengths = _attention_inputs(torch.bfloat16, masked, g,
+                                                 T=T)
+            cases.append((f"row 1 B32 T{T} c{chunk} "
+                          f"{'masked' if masked else 'unmasked'}",
+                          _launch_local, (q, k, v, lengths, chunk),
+                          la_kernel.local_attention_plain(
+                              q, k, v, lengths, chunk=chunk)))
+    for label, (B, Tq, Tk, kw) in {
+            "text": (32, 256, 256, dict(self_attn=True)),
+            "prompt": (32, 240, 240, dict(self_attn=True)),
+            "pool": (32, 16, 240, {})}.items():
+        q, k, v, mask = _full_attention_inputs(B, Tq, Tk, torch.bfloat16, g,
+                                               **kw)
+        cases.append((f"row 2 {label} B{B} Tq{Tq} Tk{Tk}", _launch_full,
+                      (q, k, v, mask),
+                      fa_kernel.full_attention_plain(q, k, v, mask)))
+    q, k, v, lengths = _attention_inputs(torch.bfloat16, True, g, T=chunk)
+    mask = length_mask(lengths, chunk)
+    cases.append((f"row 2 serve bucket decoder B32 T{chunk} masked",
+                  _launch_full, (q, k, v, mask),
+                  fa_kernel.full_attention_plain(q, k, v, mask)))
+    res = {}
+    for label, launch, args, ref in cases:
+        fns = [lambda lib=lib: launch(lib.lib, *args) for lib in (old, new)]
+        name = ("local_attention" if launch is _launch_local
+                else "full_attention")
+        for who, fn in zip(("parent", "this"), fns):
+            check_close(name, who, torch.bfloat16, fn(), ref)
+        t, host = zip(*(timed(fns[i], iters=20) for i in (0, 1, 1, 0)))
+        speedup = (t[0] + t[3]) / (t[1] + t[2])
+        print(f"  {label}: parent {t[0]:.4f} / {t[3]:.4f} ms, this "
+              f"{t[1]:.4f} / {t[2]:.4f} ms ({speedup:.2f}x); host per "
+              f"launch: parent {host[0]:.4f} / {host[3]:.4f} ms, this "
+              f"{host[1]:.4f} / {host[2]:.4f} ms  [{card}]")
+        res[label] = {"parent_ms": [t[0], t[3]], "ms": [t[1], t[2]],
+                      "parent_host_ms": [host[0], host[3]],
+                      "host_ms": [host[1], host[2]]}
+    return res
+
+
 def _profiled_call(fn, inputs, *, record_shapes: bool):
     """One call of ``fn`` under ``torch.profiler``: (profile, wall us)."""
     from torch.profiler import ProfilerActivity, profile
@@ -2120,10 +2321,20 @@ def phase_profile(fn, inputs, card: str, label: str) -> None:
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--against", metavar="DIR",
+                    help="only time rows 1 and 2 (bf16) against the kernels "
+                         "of the tree unpacked at DIR, in turns")
+    args = ap.parse_args()
     with phase("device"):
         card = phase_device()
     with phase("build"):
         phase_build()
+    if args.against:
+        with phase("against parent"):
+            print(json.dumps({"against": phase_against_parent(args.against,
+                                                              card)}))
+        return
     with phase("kernels"):
         checks = phase_kernel_checks(card)
     with phase("istft_head"):

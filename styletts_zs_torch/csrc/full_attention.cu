@@ -1,6 +1,6 @@
 // Full attention with a per-key mask, written by hand for Hopper (sm_90a).
 //
-// Replaces styletts_zs_tpu/kernels/attention_kernel.py::_full_attn_kernel
+// Replaces styletts_zs_tpu/kernels/attention_kernel.py:123 _full_attn_kernel
 // (the pallas_call in _full_attention_impl, wrapper full_attention_pallas).
 //
 // What it computes: out[b, i, h] = softmax_j(q_i . k_j * D^-0.5) v_j over
@@ -20,19 +20,22 @@
 // Tq 50, Tk 272, H 8, D 64, fp32, the most-launched shape) it reads 85 MB
 // and does 1.8 GFLOP of products on the CUDA cores (~27 us at 67 TFLOP/s
 // fp32, ~25 us of bytes at 3.35 TB/s); at the text encoder's self-attention
-// (B 32, T 256, bf16) 1.1 GFLOP on the tensor cores against 34 MB.  Both
-// are small: what costs is staging and the launch, not the arithmetic.
+// (B 32, T 256, bf16) 1.1 GFLOP on the tensor cores against 34 MB of
+// q/k/v/out (10 us of bytes): both are small, and what costs is staging,
+// the block's latency and the launch, not the arithmetic.
 //
-// Design: local_attention.cu's, with the band and the length replaced by
-// the key mask and ragged edges on both axes.  One block per (query tile
-// of 64, head, batch) walks the keys in tiles of 64 with an online
-// (flash-style) softmax, so no (Tq, Tk) score matrix reaches device memory.
-// Query rows past Tq load as zeros and are not stored; key rows past Tk
-// load as zeros and take the logit -inf, so they add nothing (a masked key
-// inside Tk takes -1e30 and counts when its whole row is masked).
-//  - bf16 (the encoders): QK^T and PV as 16x16x16 warp MMAs with fp32
-//    accumulation, four warps of 16 query rows, the softmax in fp32, two
-//    lanes per row; P is rounded to bf16 before PV.
+// Design: one block per (query tile of 64, head, batch) walks the keys in
+// tiles of 64 with an online (flash-style) softmax, so no (Tq, Tk) score
+// matrix reaches device memory.  Query rows past Tq load as zeros and are
+// not stored; key rows past Tk load as zeros and take the logit -inf, so
+// they add nothing (a masked key inside Tk takes -1e30 and counts when its
+// whole row is masked).
+//  - bf16 (the encoders): attention_fwd_sm90.cuh with KeyMaskPolicy -- TMA
+//    ring of K/V tiles (zero-filled past Tk), wgmma for Q K^T and P V with
+//    S, P and O in registers; the block first reads its mask row into one
+//    64-bit word per key tile and walks only the tiles with a valid key
+//    (kernels/full_attention.py::valid_key_tiles; every tile when there is
+//    none).  Shared memory grows by 12 bytes per key tile.
 //  - fp32 (the denoiser): 256 threads, each a 4x4 micro-tile of the 64x64
 //    score and output tiles, every product an fp32 FMA on the CUDA cores;
 //    rows padded to 65 floats (no bank conflicts).
@@ -40,9 +43,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
-#include <mma.h>
 
 #include <cstdint>
+
+#include "attention_fwd_sm90.cuh"
 
 namespace {
 
@@ -195,169 +199,6 @@ full_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ---------------------------------------------------------------------------
-// bf16 tensor-core variant
-// ---------------------------------------------------------------------------
-
-constexpr int kTcThreads = 128;    // 4 warps x 16 query rows
-constexpr int kLdh = kD + 8;       // bf16 row stride: 144 bytes
-constexpr int kLds = kD + 4;       // fp32 row stride: 272 bytes
-
-__global__ void __launch_bounds__(kTcThreads)
-full_attn_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
-                        const uint8_t* __restrict__ mask,
-                        __nv_bfloat16* __restrict__ out, int Tq, int Tk,
-                        int H, long long q_sb, long long q_st, long long q_sh,
-                        long long k_sb, long long k_st, long long k_sh,
-                        long long v_sb, long long v_st, long long v_sh,
-                        long long m_sb, float scale) {
-  using namespace nvcuda;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64][kLdh]
-  __nv_bfloat16* Ks = Qs + kBQ * kLdh;                              // [64][kLdh]
-  __nv_bfloat16* Vs = Ks + kBK * kLdh;                              // [64][kLdh]
-  __nv_bfloat16* Ps = Vs + kBK * kLdh;                              // [64][kLdh]
-  float* Ss = reinterpret_cast<float*>(Ps + kBQ * kLdh);            // [64][kLds]
-
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int row = 16 * warp + lane / 2;     // this lane's query row
-  const int half = lane % 2;                // and its 32 keys / 32 dims
-
-  const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
-  const __nv_bfloat16* kb = k + b * k_sb + h * k_sh;
-  const __nv_bfloat16* vb = v + b * v_sb + h * v_sh;
-  const uint8_t* mrow = mask == nullptr ? nullptr : mask + b * m_sb;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-
-  // 16-byte vectors: 8 per 64-element row
-  for (int idx = tid; idx < kBQ * 8; idx += kTcThreads) {
-    const int r = idx / 8, c = idx % 8;
-    *reinterpret_cast<uint4*>(Qs + r * kLdh + 8 * c) =
-        q0 + r < Tq ? *reinterpret_cast<const uint4*>(
-                          qb + (long long)(q0 + r) * q_st + 8 * c)
-                    : zero;
-  }
-
-  float m_run = kNegInf, l_run = 0.f;
-  float o[32];
-#pragma unroll
-  for (int d = 0; d < 32; ++d) o[d] = 0.f;
-
-  const int n_tiles = (Tk + kBK - 1) / kBK;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int kbase = kt * kBK;
-    __syncthreads();  // every warp is done with the previous Ks/Vs
-    for (int idx = tid; idx < kBK * 8; idx += kTcThreads) {
-      const int r = idx / 8, c = idx % 8;
-      const bool in = kbase + r < Tk;
-      *reinterpret_cast<uint4*>(Ks + r * kLdh + 8 * c) =
-          in ? *reinterpret_cast<const uint4*>(
-                   kb + (long long)(kbase + r) * k_st + 8 * c)
-             : zero;
-      *reinterpret_cast<uint4*>(Vs + r * kLdh + 8 * c) =
-          in ? *reinterpret_cast<const uint4*>(
-                   vb + (long long)(kbase + r) * v_st + 8 * c)
-             : zero;
-    }
-    __syncthreads();
-
-    // S[16 rows of this warp][64 keys] = Q K^T
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sf[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wmma::fill_fragment(sf[j], 0.f);
-#pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> a;
-        wmma::load_matrix_sync(a, Qs + 16 * warp * kLdh + 16 * kk, kLdh);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::col_major> bk;
-          wmma::load_matrix_sync(bk, Ks + 16 * j * kLdh + 16 * kk, kLdh);
-          wmma::mma_sync(sf[j], a, bk, sf[j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::store_matrix_sync(Ss + 16 * warp * kLds + 16 * j, sf[j], kLds,
-                                wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // online softmax for this lane's row over its 32 keys; the pair of
-    // lanes (row, half 0/1) combines with one shuffle
-    float* srow = Ss + row * kLds + 32 * half;
-    float mx = kNegInf;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const float sv =
-          masked_logit(srow[j], kbase + 32 * half + j, Tk, mrow, scale);
-      srow[j] = sv;
-      mx = fmaxf(mx, sv);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m_run, mx);
-    const float alpha = expf(m_run - m_new);
-    float rsum = 0.f;
-    __nv_bfloat16* prow = Ps + row * kLdh + 32 * half;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const float p = expf(srow[j] - m_new);
-      rsum += p;
-      prow[j] = __float2bfloat16(p);
-    }
-    rsum += __shfl_xor_sync(0xffffffffu, rsum, 1);
-    l_run = l_run * alpha + rsum;
-    m_run = m_new;
-    __syncwarp();
-
-    // this tile's P V for the warp's rows, through Ss
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> of[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wmma::fill_fragment(of[j], 0.f);
-#pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> a;
-        wmma::load_matrix_sync(a, Ps + 16 * warp * kLdh + 16 * kk, kLdh);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major> bv;
-          wmma::load_matrix_sync(bv, Vs + 16 * kk * kLdh + 16 * j, kLdh);
-          wmma::mma_sync(of[j], a, bv, of[j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::store_matrix_sync(Ss + 16 * warp * kLds + 16 * j, of[j], kLds,
-                                wmma::mem_row_major);
-    }
-    __syncwarp();
-    const float* pv = Ss + row * kLds + 32 * half;
-#pragma unroll
-    for (int d = 0; d < 32; ++d) o[d] = o[d] * alpha + pv[d];
-  }
-
-  if (q0 + row >= Tq) return;
-  const float inv = 1.f / fmaxf(l_run, 1e-30f);
-  __nv_bfloat16* orow =
-      out + (((long long)b * Tq + q0 + row) * H + h) * kD + 32 * half;
-#pragma unroll
-  for (int d = 0; d < 32; d += 2)
-    *reinterpret_cast<__nv_bfloat162*>(orow + d) =
-        __floats2bfloat162_rn(o[d] * inv, o[d + 1] * inv);
-}
-
 struct Args {
   const void *q, *k, *v;
   const uint8_t* mask;
@@ -367,22 +208,12 @@ struct Args {
   float scale;
 };
 
-int launch_tc(const Args& a, cudaStream_t stream) {
-  const size_t smem = sizeof(__nv_bfloat16) * 4 * kBQ * kLdh +
-                      sizeof(float) * kBQ * kLds;
-  cudaError_t err = cudaFuncSetAttribute(
-      full_attn_fwd_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((a.Tq + kBQ - 1) / kBQ, a.H, a.B);
-  full_attn_fwd_tc_kernel<<<grid, kTcThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(a.q),
-      static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v), a.mask,
-      static_cast<__nv_bfloat16*>(a.out), a.Tq, a.Tk, a.H, a.qs[0], a.qs[1],
-      a.qs[2], a.ks[0], a.ks[1], a.ks[2], a.vs[0], a.vs[1], a.vs[2], a.m_sb,
-      a.scale);
-  return (int)cudaGetLastError();
+int launch_sm90(const Args& a, cudaStream_t stream) {
+  const attn_sm90::KeyMaskPolicy pol{a.mask, a.m_sb, a.Tk};
+  return attn_sm90::launch(a.q, a.k, a.v, a.out, a.B, a.Tq, a.Tk, a.H, a.qs,
+                           a.ks, a.vs, pol,
+                           attn_sm90::KeyMaskPolicy::scratch_bytes(a.Tk),
+                           a.scale, stream);
 }
 
 int launch_fp32(const Args& a, cudaStream_t stream) {
@@ -432,6 +263,15 @@ extern "C" int full_attention_fwd(int dtype, const void* q, const void* k,
   if (dtype == 0) return launch_fp32(a, st);
   if (dtype == 1 && aligned16(q, a.qs) && aligned16(k, a.ks) &&
       aligned16(v, a.vs))
-    return launch_tc(a, st);
+    return launch_sm90(a, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// Blocks per SM and dynamic shared memory per block of the bf16 kernel
+// (attention_fwd_sm90.cuh) at Tk keys.  Returns a cudaError_t.
+extern "C" int full_attention_fwd_occupancy(int Tk, int* blocks_per_sm,
+                                            int* smem_bytes) {
+  return attn_sm90::occupancy<attn_sm90::KeyMaskPolicy>(
+      attn_sm90::KeyMaskPolicy::scratch_bytes(Tk), blocks_per_sm,
+      smem_bytes);
 }

@@ -1,6 +1,6 @@
 // Chunk-local attention forward, written by hand for Hopper (sm_90a).
 //
-// Replaces styletts_zs_tpu/kernels/attention_kernel.py::_local_attn_kernel
+// Replaces styletts_zs_tpu/kernels/attention_kernel.py:35 _local_attn_kernel
 // (the pallas_call in _local_attention_impl, wrapper local_attention_pallas)
 // and, through the entry point local_attention_fwd_lse, ::_local_attn_fwd_
 // lse_kernel (the pallas_call in _local_attention_fwd_lse_impl, wrapper
@@ -23,19 +23,26 @@
 // projection need no transpose or copy.
 //
 // What bounds it on this card: at the decoder's shapes (B 32, T 1024, H 8,
-// D 64, c 256) it reads 3 x 33.5 MB / 3 bf16 tensors and does ~51 GFLOP of
-// products, so a tensor-core kernel would be bound by operations (~52 us at
-// 989 TFLOP/s) and a CUDA-core kernel by the FMA and shared-memory rate.
+// D 64, c 256, bf16, every length T) the call moves 134 MB of q/k/v/out (40 us at 3.35
+// TB/s) and does ~43 GFLOP of products over the (query, key) pairs in band
+// and length (43 us at 989 TFLOP/s): bytes and tensor-core operations in
+// balance.
 //
-// Design: one block per (query tile of 64, head, batch); the window of W
-// keys is walked in tiles of 64 keys with an online (flash-style) softmax,
-// so no (T, W) score matrix reaches device memory.  Two variants, chosen by
-// dtype and alignment:
-//  - bf16 with 16-byte-aligned rows (the main path): QK^T and PV run on the
-//    tensor cores as 16x16x16 warp MMAs with fp32 accumulation; four warps
-//    of 16 query rows each; the softmax runs in fp32 on the CUDA cores, two
-//    lanes per row, and each row's output stays in those two lanes'
-//    registers, rescaled per tile.  P is rounded to bf16 before PV.
+// Design: one block per (query tile of 64, head, batch) walks key tiles of
+// 64 with an online (flash-style) softmax, so no (T, W) score matrix
+// reaches device memory.  Three variants, chosen by entry point, dtype and
+// alignment:
+//  - bf16 with 16-byte-aligned rows, no lse (row 1's main path):
+//    attention_fwd_sm90.cuh with LocalBandPolicy -- TMA ring of K/V tiles,
+//    wgmma for Q K^T and P V with S, P and O in registers, and only the key
+//    tiles of [max(s0, band_lo), min(s0 + W, band_hi, length)) walked
+//    (kernels/local_attention.py::valid_key_tiles; the whole window when
+//    that is empty).
+//  - bf16 with 16-byte-aligned rows and the lse (row 3):
+//    local_attn_fwd_tc_kernel<true> -- 16x16x16 warp MMAs with fp32
+//    accumulation; four warps of 16 query rows each; the softmax in fp32 on
+//    the CUDA cores, two lanes per row, through shared memory; every tile of
+//    the window walked.  P is rounded to bf16 before PV.
 //  - fp32 (and unaligned bf16): 256 threads, each owning a 4x4 micro-tile
 //    of the 64x64 score tile and of the 64x64 output tile (rows ty + 16a,
 //    columns tx + 16j) on the CUDA cores; rows padded to 65 floats so the
@@ -44,6 +51,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
+
+#include "attention_fwd_sm90.cuh"
 
 namespace {
 
@@ -427,9 +436,15 @@ int dispatch(int dtype, const void* q, const void* k, const void* v,
   if (dtype == 0)
     return launch<float, kLse>(q, k, v, lengths, out, lse, B, T, H, chunk, qs,
                                ks, vs, scale, st);
-  if (dtype == 1 && aligned16(q, qs) && aligned16(k, ks) && aligned16(v, vs))
-    return launch_tc<kLse>(q, k, v, lengths, out, lse, B, T, H, chunk, qs, ks,
-                           vs, scale, st);
+  if (dtype == 1 && aligned16(q, qs) && aligned16(k, ks) && aligned16(v, vs)) {
+    if constexpr (kLse)
+      return launch_tc<true>(q, k, v, lengths, out, lse, B, T, H, chunk, qs,
+                             ks, vs, scale, st);
+    else
+      return attn_sm90::launch(q, k, v, out, B, T, T, H, qs, ks, vs,
+                               attn_sm90::LocalBandPolicy{lengths, T, chunk},
+                               0, scale, st);
+  }
   if (dtype == 1)
     return launch<__nv_bfloat16, kLse>(q, k, v, lengths, out, lse, B, T, H,
                                        chunk, qs, ks, vs, scale, st);
@@ -472,4 +487,12 @@ extern "C" int local_attention_fwd_lse(int dtype, const void* q,
   const long long vs[3] = {v_sb, v_st, v_sh};
   return dispatch<true>(dtype, q, k, v, lengths, out, lse, B, T, H, D, chunk,
                         qs, ks, vs, scale, stream);
+}
+
+// Blocks per SM and dynamic shared memory per block of row 1's bf16 kernel
+// (attention_fwd_sm90.cuh).  Returns a cudaError_t.
+extern "C" int local_attention_fwd_occupancy(int* blocks_per_sm,
+                                             int* smem_bytes) {
+  return attn_sm90::occupancy<attn_sm90::LocalBandPolicy>(0, blocks_per_sm,
+                                                          smem_bytes);
 }

@@ -3,13 +3,15 @@
 Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all
 started together, and the objects are linked by one more into one shared
 library with a plain C interface, which ``ctypes`` loads.  No PyTorch
-headers are compiled, so the build takes as long as the slowest source.  The library goes to
-``build/`` at the repository root (listed in ``.gitignore``), named by a
-hash of the sources and flags, so an unchanged tree loads the library it
-already built.  Nothing here runs at import time: the first kernel launch
-calls ``library()``.  A failed build or launch raises ``KernelError``, which
-is not a ``RuntimeError``: the server requeues a batch on a runtime error,
-and must never requeue a kernel fault.
+headers are compiled, so the build takes as long as the slowest source.
+The library goes to ``build/`` at the repository root (listed in
+``.gitignore``), named by a hash of the sources, the headers they include
+(``csrc/*.cuh``) and the flags, so an unchanged tree loads the library it
+already built and an edited header builds anew.  Nothing here runs at
+import time: the first kernel launch calls ``library()``.  A failed build
+or launch raises ``KernelError``, which is not a ``RuntimeError``: the
+server requeues a batch on a runtime error, and must never requeue a
+kernel fault.
 """
 from __future__ import annotations
 
@@ -80,6 +82,10 @@ _SIGNATURES = {
     # leaky, slope, stream
     "conv_transpose_fwd": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L,
                            _L, _I, _F, _P],
+    # blocks per SM and dynamic shared memory per block (int pointers) of
+    # the bf16 forwards of rows 1 and 2 (the latter at Tk keys)
+    "local_attention_fwd_occupancy": [_P, _P],
+    "full_attention_fwd_occupancy": [_I, _P, _P],
 }
 
 
@@ -97,7 +103,13 @@ class KernelLibrary:
 
 
 def sources() -> list[Path]:
+    """The sources nvcc compiles, one process each."""
     return sorted(CSRC.glob("*.cu"))
+
+
+def headers() -> list[Path]:
+    """The headers the sources include: not compiled alone, but hashed."""
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def nvcc() -> str:
@@ -111,9 +123,11 @@ def nvcc() -> str:
     return found
 
 
-def _digest(srcs: list[Path]) -> str:
+def digest() -> str:
+    """The hash that names the library: the flags, then each source and
+    header by name and content."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in srcs:
+    for p in sources() + headers():
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
@@ -124,7 +138,7 @@ def library() -> KernelLibrary:
     """Build (once per source hash) and load the kernel library."""
     srcs = sources()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    path = BUILD_DIR / f"libstyletts_zs_kernels-{_digest(srcs)}.so"
+    path = BUILD_DIR / f"libstyletts_zs_kernels-{digest()}.so"
     seconds, log = 0.0, "loaded an existing build"
     if not path.exists():
         t0 = time.perf_counter()

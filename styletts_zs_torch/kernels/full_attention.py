@@ -26,6 +26,21 @@ launches = 0   # CUDA kernel launches; ``full_attention_cuda`` adds one each
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def valid_key_tiles(mask_row, Tk: int, tile: int = 64) -> list[int]:
+    """The key tiles (indices of ``tile`` keys) the bf16 kernel walks for a
+    batch row with key mask ``mask_row`` (Tk,) or None: the tiles that hold
+    a valid key, whose probabilities alone are not exactly 0; or, when the
+    row has no valid key, every tile, all keys at equal weight (the kernel
+    then needs no scores: P.V alone)."""
+    n = -(-Tk // tile)
+    if mask_row is None:
+        return list(range(n))
+    has_key = torch.zeros(n * tile, dtype=torch.bool)
+    has_key[:Tk] = mask_row.reshape(Tk).bool().cpu()
+    tiles = torch.nonzero(has_key.reshape(n, tile).any(-1)).flatten()
+    return tiles.tolist() or list(range(n))
+
+
 def full_attention_plain(q, k, v, mask=None) -> torch.Tensor:
     """Plain PyTorch version of the kernel (the Pallas kernel's steps)."""
     plain.note("full_attention", q)

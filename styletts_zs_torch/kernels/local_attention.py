@@ -43,6 +43,32 @@ bwd_dkv_launches = 0   # row 5, ``local_attention_bwd_dkv_cuda``
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def valid_key_tiles(ci: int, T: int, chunk: int, length: int,
+                    tile: int = 64) -> tuple[int, int, bool]:
+    """The key tiles row 1's bf16 kernel walks for the queries of chunk
+    ``ci``: (first key, number of tiles of ``tile`` keys, whether the chunk
+    has a valid key).
+
+    With a valid key, the tiles of [max(s0, band_lo), min(s0 + W, band_hi,
+    length)): every key outside them is masked for every query of the chunk,
+    so its probability is exactly 0 and skipping it is exact.  With none,
+    every tile of the clipped window [s0, s0 + W), all at equal weight (the
+    kernel then needs no scores: P.V alone).  The kernel takes chunks that
+    are multiples of the tile, so both ranges start and end on tile
+    boundaries inside the window."""
+    if chunk % tile or T % chunk or T < 2 * chunk:
+        raise ValueError(f"the kernel takes chunk % {tile} == 0 and T a "
+                         f"multiple of chunk, >= 2 chunks; got chunk={chunk} "
+                         f"T={T}")
+    W = min(3 * chunk, T)
+    s0 = max(0, min((ci - 1) * chunk, T - W))
+    lo = max(s0, (ci - 1) * chunk)
+    hi = min(s0 + W, (ci + 2) * chunk, length)
+    if hi > lo:
+        return lo, -(-(hi - lo) // tile), True
+    return s0, W // tile, False
+
+
 def _window(q, k, lengths, chunk: int):
     """fp32 logits of every query chunk over its clipped window, masked keys
     at ``NEG_INF``: (logits (B, n, H, c, W), window key indices (n, W))."""

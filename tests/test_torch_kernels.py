@@ -7,6 +7,10 @@ XLA twin; chunk-local attention takes every length the JAX twin takes
 (JAX's Pallas gate included), the synthesis head's gate is compared with
 JAX's; and the routing and the wrappers' refusals are checked.
 """
+import importlib.util
+import shutil
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +30,7 @@ from styletts_zs_torch.kernels import istft as istft_k
 from styletts_zs_torch.kernels import local_attention as la
 from styletts_zs_torch.kernels import synthesis_head as head
 from styletts_zs_torch.ops import attention as attn_ops
+from styletts_zs_torch.ops.attention import NEG_INF
 
 # fp32: the same sums in another order.  bf16: conv/probabilities rounded
 # to bf16 at the same places, but a sum in another order can round one bf16
@@ -322,10 +327,196 @@ def test_build_lists_every_source_and_names_the_target():
                      "conv_transpose.cu", "full_attention.cu", "istft.cu",
                      "local_attention.cu", "local_attention_bwd.cu",
                      "sampler.cu", "synthesis_head.cu"]
+    assert [p.name for p in build.headers()] == ["attention_fwd_sm90.cuh"]
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     for p in build.sources():
         src = p.read_text()
         assert "#include <torch" not in src and 'extern "C"' in src
+    for p in build.headers():
+        assert "#include <torch" not in p.read_text()
+
+
+@pytest.mark.parametrize("edited", ["attention_fwd_sm90.cuh",
+                                    "local_attention.cu"])
+def test_build_digest_covers_sources_and_headers(tmp_path, monkeypatch,
+                                                 edited):
+    """An edit to a header names a new library as an edit to a source does,
+    so a stale build is never loaded; nvcc still compiles only the sources."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    assert all(p.suffix == ".cu" for p in build.sources())
+    before = build.digest()
+    assert build.digest() == before
+    f = csrc / edited
+    f.write_text(f.read_text() + "\n// edited\n")
+    assert build.digest() != before
+
+
+# --- rows 1 and 2: the key tiles the bf16 kernels walk -----------------------
+
+SKIP_CHUNK, SKIP_H, SKIP_D = 256, 2, 16
+# attention over the walked tiles alone against the plain version over every
+# key, fp32: the same nonzero terms summed over a shorter key axis
+SKIP_ATOL = 1e-6
+
+
+def _probs(logits):
+    """The plain versions' probabilities from their masked logits."""
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    return e / torch.clamp(e.sum(dim=-1, keepdim=True), min=1e-30)
+
+
+@pytest.mark.parametrize("T_", [2 * SKIP_CHUNK, 4 * SKIP_CHUNK])
+@pytest.mark.parametrize("length", [0, 1, SKIP_CHUNK, 700, None])
+def test_local_attention_skips_only_tiles_without_a_valid_key(T_, length):
+    """Row 1: for each query chunk with a valid key, every key outside the
+    tiles ``valid_key_tiles`` names has probability exactly 0.0 in the plain
+    version, and attention over those tiles alone matches it; a chunk with
+    none walks its whole clipped window."""
+    length = T_ if length is None else length
+    q, k, v = (t(rnd(1, T_, SKIP_H, SKIP_D, seed=s)) for s in (31, 32, 33))
+    lengths = torch.tensor([length], dtype=torch.int32)
+    logits, key = la._window(q, k, lengths, SKIP_CHUNK)   # (1, n, H, c, W)
+    probs = _probs(logits)
+    ref = la.local_attention_plain(q, k, v, lengths, chunk=SKIP_CHUNK)
+    W = key.shape[1]
+    n_valid = n_none = 0
+    for ci in range(T_ // SKIP_CHUNK):
+        first, n_tiles, has_key = la.valid_key_tiles(ci, T_, SKIP_CHUNK,
+                                                     length)
+        walked = (key[ci] >= first) & (key[ci] < first + 64 * n_tiles)
+        band = (key[ci] >= (ci - 1) * SKIP_CHUNK) & \
+            (key[ci] < (ci + 2) * SKIP_CHUNK)
+        assert has_key == bool((band & (key[ci] < length)).any())
+        assert int(walked.sum()) == 64 * n_tiles
+        if has_key:
+            n_valid += 1
+            assert torch.all(probs[0, ci][..., ~walked] == 0.0)
+            valid = (band & (key[ci] < length))[walked].reshape(n_tiles, 64)
+            assert bool(valid.any(-1).all())     # no tile walked in vain
+        else:
+            n_none += 1
+            assert n_tiles * 64 == W and bool(walked.all())
+        p = _probs(logits[0, ci][..., walked])              # (H, c, walked)
+        out = torch.einsum("hqk,khd->qhd", p, v[0, key[ci][walked]])
+        rows = slice(ci * SKIP_CHUNK, (ci + 1) * SKIP_CHUNK)
+        np.testing.assert_allclose(n(out), n(ref[0, rows]), atol=SKIP_ATOL,
+                                   rtol=0)
+    assert n_valid + n_none == T_ // SKIP_CHUNK
+    assert n_valid == 0 if length == 0 else n_valid > 0
+
+
+def _skip_masks(Tk, kind):
+    """(3, Tk) key masks: lengths (0, 1, c, 700, Tk clipped) or the
+    denoiser's [text | padding | prompt] with a row of no valid key."""
+    if kind == "lengths":
+        lens = np.array([0, 1, SKIP_CHUNK, min(700, Tk), Tk])
+        return np.arange(Tk)[None] < lens[:, None]
+    n_prompt = 16
+    text = np.arange(Tk - n_prompt)[None] < np.array([0, 9, 200, 0])[:, None]
+    mask = np.concatenate([text, np.ones((4, n_prompt), bool)], axis=1)
+    mask[3] = False
+    return mask
+
+
+@pytest.mark.parametrize("Tk,kind", [(2 * SKIP_CHUNK, "lengths"),
+                                     (4 * SKIP_CHUNK, "lengths"),
+                                     (272, "text_prompt"), (240, None)])
+def test_full_attention_skips_only_tiles_without_a_valid_key(Tk, kind):
+    """Row 2: per batch row, the keys outside the tiles ``valid_key_tiles``
+    names have probability exactly 0.0 in the plain version where the row
+    has a valid key, and attention over those tiles alone matches it; a row
+    with none (or no mask) walks every tile of the Tk keys."""
+    mask = None if kind is None else t(_skip_masks(Tk, kind))
+    B = 2 if mask is None else mask.shape[0]
+    Tq = 50
+    q = t(rnd(B, Tq, SKIP_H, SKIP_D, seed=34))
+    k, v = (t(rnd(B, Tk, SKIP_H, SKIP_D, seed=s)) for s in (35, 36))
+    ref = fa.full_attention_plain(q, k, v, mask)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * SKIP_D ** -0.5
+    if mask is not None:
+        logits = logits.masked_fill(~mask[:, None, None, :], NEG_INF)
+    probs = _probs(logits)
+    n_tiles = -(-Tk // 64)
+    for b in range(B):
+        row = None if mask is None else mask[b]
+        tiles = fa.valid_key_tiles(row, Tk)
+        walked = torch.zeros(n_tiles * 64, dtype=torch.bool)
+        for tile in tiles:
+            walked[64 * tile:64 * (tile + 1)] = True
+        walked = walked[:Tk]
+        if row is None or not bool(row.any()):
+            assert tiles == list(range(n_tiles))
+        else:
+            assert all(bool(row[64 * i:64 * (i + 1)].any()) for i in tiles)
+            assert torch.all(probs[b][..., ~walked] == 0.0)
+        p = _probs(logits[b][..., walked])
+        out = torch.einsum("hqk,khd->qhd", p, v[b, walked])
+        np.testing.assert_allclose(n(out), n(ref[b]), atol=SKIP_ATOL, rtol=0)
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("T_", [64, 128, 256])
+def test_local_attention_bound_counts_what_the_function_needs(T_):
+    """chip_smoke's bound for rows 1 and 2 (through the local kernel's
+    function): its bytes and FLOPs equal what the plain version's masked
+    logits and probabilities show the function needs.  K where some query
+    has a valid score; V where some query has a nonzero probability; Q for
+    the queries with a valid key; every output; one int32 length a row;
+    QK^T and PV over the valid pairs."""
+    chunk, H, D = 64, 2, 16
+    lens = [0, 1, 64, 100, T_]
+    q, k = (t(rnd(len(lens), T_, H, D, seed=s)) for s in (41, 42))
+    lengths = torch.tensor(lens, dtype=torch.int32)
+    logits, key = la._window(q, k, lengths, chunk)     # (B, n, H, c, W)
+    valid = logits[:, :, 0] != NEG_INF                  # (B, n, c, W)
+    nonzero = (_probs(logits[:, :, 0]) > 0)
+    rows = pairs = 0
+    for b in range(len(lens)):
+        k_keys = torch.zeros(T_, dtype=torch.bool)
+        v_keys = torch.zeros(T_, dtype=torch.bool)
+        for ci in range(key.shape[0]):
+            k_keys[key[ci][valid[b, ci].any(0)]] = True
+            v_keys[key[ci][nonzero[b, ci].any(0)]] = True
+        n_q = int(valid[b].any(-1).sum())
+        rows += n_q + int(k_keys.sum()) + int(v_keys.sum()) + T_
+        pairs += int(valid[b].sum())
+    want = (rows * H * D * 2 + 4 * len(lens), 4 * pairs * H * D)
+    assert _chip_smoke()._attention_work(lengths, T_, H, D, chunk, 2) == want
+
+
+def test_full_attention_bound_counts_what_the_function_needs():
+    """The same for row 2 with the denoiser's [text | padding | prompt]
+    mask and a row with no valid key, which reads V alone; the bool mask is
+    read once."""
+    H, D, Tq, Tk = 2, 16, 50, 272
+    mask = t(_skip_masks(Tk, "text_prompt"))
+    B = mask.shape[0]
+    q = t(rnd(B, Tq, H, D, seed=43))
+    k = t(rnd(B, Tk, H, D, seed=44))
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).masked_fill(
+        ~mask[:, None, None, :], NEG_INF)
+    valid = logits[:, 0] != NEG_INF                     # (B, Tq, Tk)
+    nonzero = _probs(logits[:, 0]) > 0
+    rows = (int(valid.any(-1).sum()) + int(valid.any(1).sum())
+            + int(nonzero.any(1).sum()) + B * Tq)
+    want = (rows * H * D * 4 + B * Tk, 4 * int(valid.sum()) * H * D)
+    assert _chip_smoke()._full_attention_work(q, k, mask) == want
+
+
+def test_valid_key_tiles_refuse_what_the_kernel_cannot_take():
+    with pytest.raises(ValueError):
+        la.valid_key_tiles(0, 96, 32, 96)        # chunk not a multiple of 64
+    with pytest.raises(ValueError):
+        la.valid_key_tiles(0, 256, 256, 256)     # one chunk: full attention
 
 
 # --- rows 3-5: the local-attention forward with lse and its backward --------
