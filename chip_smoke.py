@@ -11,7 +11,8 @@ Phases, one line each with its seconds:
                   source, all started together (``-Xptxas -v`` register,
                   shared-memory and spill lines printed; for the bf16
                   forwards of rows 1 and 2, ``attention_fwd_sm90.cuh``,
-                  their dynamic shared memory and blocks per SM);
+                  and row 10's bf16 kernel, their dynamic shared memory
+                  and blocks per SM);
   3. kernels    — each hand-written kernel against its plain PyTorch
                   version at the main paths' shapes, fp32 and bf16, masked
                   and unmasked, with kernel / plain / library times from
@@ -77,11 +78,19 @@ phase 1.  It imports nothing of JAX.
 
     python3 chip_smoke.py --against build/parent
 
-runs phases 1 and 2 and then only times rows 1 and 2 in bf16, at every
-shape the paths launch them, against the kernels of another tree unpacked
-at that directory (``git archive <commit> | tar -x -C build/parent``; its
-``kernels/build.py`` builds them into its own ``build/``), each held
-against the plain version, in turns (parent, this, this, parent).
+runs phases 1 and 2 and then only times rows 1, 2, 3 and 10 in bf16, at
+every shape the paths launch them, against the kernels of another tree
+unpacked at that directory (``git archive <commit> | tar -x -C
+build/parent``; its ``kernels/build.py`` builds them into its own
+``build/``), each held against the plain version, in turns (parent, this,
+this, parent), after both trees' registers, spills and shared memory of
+those kernels.
+
+    python3 chip_smoke.py --paths-against build/parent
+
+runs phases 1 and 2 and then the 1-step, long-form and train-step phases
+(4, 5, 8, 9, 10 and 11) of that tree and of this one in turns, each in its
+own process from its own root.
 """
 from __future__ import annotations
 
@@ -362,8 +371,8 @@ def phase_device() -> str:
 def phase_build() -> build.KernelLibrary:
     """Build the library and print each kernel's ``-Xptxas -v`` lines (entry,
     registers, spills); for the bf16 forwards of rows 1 and 2
-    (``attention_fwd_sm90.cuh``), their dynamic shared memory a block and
-    blocks per SM from the occupancy API."""
+    (``attention_fwd_sm90.cuh``) and row 10's bf16 kernel, their dynamic
+    shared memory a block and blocks per SM from the occupancy API."""
     lib = build.library()
     print(f"built {lib.path.name} in {lib.build_seconds:.1f} s "
           f"({len(build.sources())} sources and {len(build.headers())} "
@@ -374,13 +383,16 @@ def phase_build() -> build.KernelLibrary:
             print("  " + line.strip())
     blocks, smem = ctypes.c_int(), ctypes.c_int()
     for label, fn, args in (
-            ("row 1 bf16", lib.lib.local_attention_fwd_occupancy, ()),
-            ("row 2 bf16 at Tk 256", lib.lib.full_attention_fwd_occupancy,
-             (256,))):
+            ("attn_fwd_sm90_kernel row 1 bf16",
+             lib.lib.local_attention_fwd_occupancy, ()),
+            ("attn_fwd_sm90_kernel row 2 bf16 at Tk 256",
+             lib.lib.full_attention_fwd_occupancy, (256,)),
+            ("conv_transpose_sm90_kernel row 10 bf16",
+             lib.lib.conv_transpose_fwd_occupancy, ())):
         build.check(fn(*args, ctypes.byref(blocks), ctypes.byref(smem)),
                     label)
-        print(f"  attn_fwd_sm90_kernel {label}: {smem.value} bytes of "
-              f"dynamic shared memory a block, {blocks.value} blocks per SM")
+        print(f"  {label}: {smem.value} bytes of dynamic shared memory a "
+              f"block, {blocks.value} blocks per SM")
     return lib
 
 
@@ -431,6 +443,60 @@ def _attention_work(lengths: torch.Tensor, T: int, H: int, D: int,
         pairs += c * int(np.clip(np.minimum(hi, L) - lo, 0, None).sum())
     n_bytes = rows * H * D * itemsize + 4 * lengths.numel()
     return n_bytes, pairs * H * 4 * D
+
+
+def _attention_train_work(lengths: torch.Tensor, T: int, H: int, D: int,
+                          chunk: int, itemsize: int) -> dict:
+    """Bytes and matmul FLOPs that rows 3, 4 and 5 need, by kernel name.
+    Per batch row of length L, query chunk i has a valid key when its band
+    holds a key below L; a chunk without one averages its clipped window
+    (p = 1 there, from lse = -1e30).
+
+    Row 3: row 1's work (``_attention_work``) and the lse written.  Row 4
+    (dq): Q of the chunks with a valid key; K and V below L and in the
+    windows of the chunks without one; g, dq, lse and delta of every query;
+    QK^T, g V^T and dS K over the valid pairs (6D each), g V^T and dS K over
+    the windows of the chunks without one (4D).  Row 5 (dk, dv): key chunk
+    j against query chunks j-1..j+1 (the band, masked by the length only):
+    Q, g, lse and delta of every query, K below L, V below L and in the
+    band of a query chunk without a valid key, dk and dv written; QK^T,
+    g V^T, dS^T Q and P^T g over the valid pairs (8D), g V^T and dS^T Q
+    over the band of a chunk without a valid key (4D; its P^T g is a sum).
+    One int32 length a row read by each."""
+    c, n, W = chunk, T // chunk, min(3 * chunk, T)
+    ci = np.arange(n)
+    lo = np.maximum((ci - 1) * c, 0)
+    hi = np.minimum((ci + 2) * c, T)
+    s0 = np.clip((ci - 1) * c, 0, T - W)
+    rows_dq = rows_dkv = pairs_dq = pairs_dkv = 0
+    for L in lengths.tolist():
+        L = min(L, T)
+        n_valid = np.clip(np.minimum(hi, L) - lo, 0, None)
+        has = n_valid > 0
+        kv_dq = np.arange(T) < L
+        for s in s0[~has]:
+            kv_dq[s:s + W] = True
+        rows_dq += c * int(has.sum()) + 2 * int(kv_dq.sum()) + 2 * T
+        pairs_dq += 6 * c * int(n_valid.sum()) + 4 * c * W * int((~has).sum())
+        below = np.clip(L - ci * c, 0, c)           # keys of chunk j below L
+        v_dkv = np.arange(T) < L
+        for i in range(n):
+            band = range(max(i - 1, 0), min(i + 2, n))
+            if has[i]:
+                pairs_dkv += 8 * c * int(sum(below[j] for j in band))
+            else:
+                v_dkv[band[0] * c:(band[-1] + 1) * c] = True
+                pairs_dkv += 4 * c * c * len(band)
+        rows_dkv += 2 * T + L + int(v_dkv.sum()) + 2 * T
+    B = lengths.numel()
+    stat, lens = B * H * T * 4, 4 * B
+    fwd_bytes, fwd_flops = _attention_work(lengths, T, H, D, chunk, itemsize)
+    return {"local_attention_fwd_lse": (fwd_bytes + stat, fwd_flops),
+            "local_attention_bwd_dq": (rows_dq * H * D * itemsize + 2 * stat
+                                       + lens, pairs_dq * H * D),
+            "local_attention_bwd_dkv": (rows_dkv * H * D * itemsize
+                                        + 2 * stat + lens,
+                                        pairs_dkv * H * D)}
 
 
 def _time_local_attention(fn, q, k, v, lengths, chunk: int,
@@ -869,6 +935,14 @@ def check_adain_conv(card: str) -> dict:
     return res
 
 
+# Row 10's shapes on the paths: (B, T, Cin, Cout) of the vocoder's two
+# stages for long-form (B 4, 4864 frames) and the 1-step batch 32.
+_CONVT_CASES = {"long_form_stage1": (4, 4864, 512, 256),
+                "long_form_stage2": (4, 24320, 256, 128),
+                "one_step_b32_stage1": (32, 1024, 512, 256),
+                "one_step_b32_stage2": (32, 5120, 256, 128)}
+
+
 def _convt_inputs(B, T, C_in, C_out, dtype, g):
     """x (B, T, Cin) as a view of (B, Cin, T) memory, as the vocoder's
     resblocks hand it over, and a K 10 weight (K, Cin, Cout)."""
@@ -894,12 +968,8 @@ def check_conv_transpose(card: str) -> dict:
     reading the layout in place saves."""
     g = torch.Generator(device="cuda").manual_seed(8)
     r = 5
-    cases = {"long_form_stage1": (4, 4864, 512, 256),
-             "long_form_stage2": (4, 24320, 256, 128),
-             "one_step_b32_stage1": (32, 1024, 512, 256),
-             "one_step_b32_stage2": (32, 5120, 256, 128)}
     res, errs = {}, []
-    for label, (B, T, C_in, C_out) in cases.items():
+    for label, (B, T, C_in, C_out) in _CONVT_CASES.items():
         for dtype in (torch.float32, torch.bfloat16):
             x, w = _convt_inputs(B, T, C_in, C_out, dtype, g)
             out = ct_kernel.conv_transpose1d_cuda(x, w, stride=r,
@@ -954,19 +1024,53 @@ def check_conv_transpose(card: str) -> dict:
 
 def _attention_train_inputs(B, T, dtype, g, chunk):
     """q/k/v as views of one fused projection; key lengths that mask part
-    of the last chunks (one of them leaves the last chunk's queries with no
-    valid key); the output's cotangent, zeroed on the query rows past the
-    length as the decoder's mask zeroes it."""
+    of the last chunks: length T - 2c leaves the last chunk's queries with
+    no valid key (all of them at T 2c) and length 0 every chunk's; the
+    output's cotangent, zeroed on the query rows past the length as the
+    decoder's mask zeroes it."""
     H, D = 8, 64
     qkv = torch.randn(B, T, 3 * H * D, generator=g, device="cuda").to(dtype)
     q, k, v = (t.reshape(B, T, H, D) for t in qkv.split(H * D, dim=-1))
     lengths = torch.randint(T - 2 * chunk + 1, T + 1, (B,), generator=g,
                             device="cuda")
-    lengths[:3] = torch.tensor([T, T - 1, T - 2 * chunk + 7], device="cuda")
+    lengths[:4] = torch.tensor([T, T - 1, T - 2 * chunk, 0], device="cuda")
     lengths = lengths.to(torch.int32)
     gout = torch.randn(B, T, H, D, generator=g, device="cuda")
     gout = (gout * length_mask(lengths, T)[..., None, None]).to(dtype)
     return q, k, v, gout, lengths
+
+
+def _no_valid_key_chunks(lengths, T: int, chunk: int):
+    """(batch row, query chunk, window start) of each query chunk whose band
+    holds no key below the length."""
+    W = min(3 * chunk, T)
+    for b, L in enumerate(lengths):
+        for ci in range(T // chunk):
+            if min((ci + 2) * chunk, T, L) <= max((ci - 1) * chunk, 0):
+                yield b, ci, max(0, min((ci - 1) * chunk, T - W))
+
+
+def _check_no_valid_key(out, lse, v, lengths, chunk: int, label: str):
+    """Row 3 on the query chunks with no valid key: lse exactly -1e30, and
+    (bf16) the output the fp32 mean of v over the clipped window."""
+    T = v.shape[1]
+    W = min(3 * chunk, T)
+    chunks = list(_no_valid_key_chunks(lengths.tolist(), T, chunk))
+    if not chunks:
+        raise AssertionError(f"{label}: the inputs hold no chunk without a "
+                             f"valid key")
+    rows = [slice(ci * chunk, (ci + 1) * chunk) for _, ci, _ in chunks]
+    got_lse = torch.cat([lse[b, :, r] for (b, _, _), r in zip(chunks, rows)])
+    if not bool((got_lse == -1e30).all()):
+        raise AssertionError(f"{label}: lse of a chunk with no valid key is "
+                             f"not -1e30 (max {got_lse.max().item()})")
+    if out.dtype == torch.bfloat16:
+        got = torch.cat([out[b, r] for (b, _, _), r in zip(chunks, rows)])
+        mean = torch.cat([v[b, s0:s0 + W].float().mean(0).expand(chunk, -1, -1)
+                          for b, _, s0 in chunks])
+        check_close("attention_no_valid_key", label, torch.bfloat16, got, mean)
+    print(f"  local_attention_fwd_lse {label}: {len(chunks)} query chunks "
+          f"with no valid key, lse -1e30")
 
 
 def _sdpa_mask(lengths, T, chunk):
@@ -986,6 +1090,8 @@ def _check_attention_train_case(B, T, chunk, g, label) -> tuple[dict, dict]:
                                                           chunk=chunk)
         ref_out, ref_lse = la_kernel.local_attention_fwd_lse_plain(
             q, k, v, lengths, chunk=chunk)
+        _check_no_valid_key(out, lse, v, lengths.cpu(), chunk,
+                            f"{label} {str(dtype)[6:]}")
         delta = (gout.float() * out.float()).sum(-1).transpose(1, 2) \
             .contiguous()
         args = (q, k, v, gout, lse, delta, lengths)
@@ -1030,16 +1136,7 @@ def _check_attention_train_case(B, T, chunk, g, label) -> tuple[dict, dict]:
     gt = gout.transpose(1, 2)
     lib_bwd = cuda_ms(lambda: torch.autograd.grad(
         lib_out, (qt, kt, vt), gt, retain_graph=True), iters=5)
-    _, fwd_flops = _attention_work(lengths.cpu(), T, 8, 64, chunk, 2)
-    it = 2
-    qkv_bytes = 3 * B * T * 8 * 64 * it
-    stat_bytes = B * 8 * T * 4
-    work = {"local_attention_fwd_lse": (qkv_bytes + B * T * 512 * it
-                                        + stat_bytes, fwd_flops),
-            "local_attention_bwd_dq": (qkv_bytes + 2 * B * T * 512 * it
-                                       + 2 * stat_bytes, fwd_flops * 3 // 2),
-            "local_attention_bwd_dkv": (qkv_bytes + 3 * B * T * 512 * it
-                                        + 2 * stat_bytes, fwd_flops * 2)}
+    work = _attention_train_work(lengths.cpu(), T, 8, 64, chunk, 2)
     times = {}
     for name, fn in (("local_attention_fwd_lse", fwd),
                      ("local_attention_bwd_dq", dq_fn),
@@ -2203,21 +2300,55 @@ def _launch_full(lib, q, k, v, mask) -> torch.Tensor:
     return out
 
 
+def _launch_local_lse(lib, q, k, v, lengths, chunk: int):
+    """``local_attention_fwd_lse`` of ``lib`` (row 3): (out, lse)."""
+    B, T, H, D = q.shape
+    out = torch.empty(B, T, H, D, dtype=q.dtype, device=q.device)
+    lse = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
+    build.check(lib.local_attention_fwd_lse(
+        1, q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), B, T, H, D, chunk,
+        *[st for x in (q, k, v) for st in x.stride()[:3]], D ** -0.5,
+        torch.cuda.current_stream().cuda_stream), "local_attention_fwd_lse")
+    return out, lse
+
+
+def _launch_convt(lib, x, w, stride: int = 5) -> torch.Tensor:
+    """``conv_transpose_fwd`` of ``lib`` (row 10) on a bf16 CUDA x, with
+    the vocoder's leaky ReLU."""
+    B, T, C_in = x.shape
+    K, _, C_out = w.shape
+    out = torch.empty(B, C_out, T * stride, dtype=x.dtype, device=x.device)
+    build.check(lib.conv_transpose_fwd(
+        1, x.data_ptr(), w.data_ptr(), out.data_ptr(), B, T, C_in, C_out, K,
+        stride, *x.stride(), 1, 0.1,
+        torch.cuda.current_stream().cuda_stream), "conv_transpose_fwd")
+    return out.transpose(1, 2)
+
+
+def _print_resources(who: str, lib: build.KernelLibrary) -> None:
+    """Registers, spills and static shared memory of the bf16 kernels of
+    rows 1-3 and 10 from a library's ``-Xptxas -v`` log."""
+    entry = ""
+    for line in lib.log.splitlines():
+        if "Compiling entry" in line:
+            entry = line
+        if any(k in entry for k in ("attn_fwd", "conv_transpose")) and (
+                "Used" in line or "spill" in line):
+            print(f"    {who} {entry.split()[-3][:70]}: {line.strip()}")
+
+
 def phase_against_parent(parent: str, card: str) -> dict:
-    """Rows 1 and 2 in bf16 at every shape the paths launch them: this
-    tree's kernels against those of the tree unpacked at ``parent``, both
-    held against the plain version, then timed in turns (parent, this,
+    """Rows 1, 2, 3 and 10 in bf16 at every shape the paths launch them:
+    this tree's kernels against those of the tree unpacked at ``parent``,
+    both held against the plain version, then timed in turns (parent, this,
     this, parent) on the same inputs."""
     old = _parent_library(Path(parent).resolve())
     new = build.library()
     print(f"  parent library {old.path} (built in {old.build_seconds:.1f} "
           f"s)  [{card}]")
-    entry = ""
-    for line in old.log.splitlines():    # the parent's attention forwards
-        if "Compiling entry" in line:
-            entry = line
-        if "attn_fwd" in entry and ("Used" in line or "spill" in line):
-            print(f"    parent {entry.split()[-3][:70]}: {line.strip()}")
+    _print_resources("parent", old)
+    _print_resources("this", new)
     g = torch.Generator(device="cuda").manual_seed(9)
     chunk = 256
     cases = []
@@ -2244,13 +2375,33 @@ def phase_against_parent(parent: str, card: str) -> dict:
     cases.append((f"row 2 serve bucket decoder B32 T{chunk} masked",
                   _launch_full, (q, k, v, mask),
                   fa_kernel.full_attention_plain(q, k, v, mask)))
+    for T in (1024, 2 * chunk):
+        q, k, v, _, lengths = _attention_train_inputs(16, T, torch.bfloat16,
+                                                      g, chunk)
+        cases.append((f"row 3 B16 T{T} c{chunk} masked", _launch_local_lse,
+                      (q, k, v, lengths, chunk),
+                      la_kernel.local_attention_fwd_lse_plain(
+                          q, k, v, lengths, chunk=chunk)))
+    for label, (B, T, C_in, C_out) in _CONVT_CASES.items():
+        x, w = _convt_inputs(B, T, C_in, C_out, torch.bfloat16, g)
+        cases.append((f"row 10 {label} ({B}, {T}, {C_in}) -> {C_out}",
+                      _launch_convt, (x, w),
+                      ct_kernel.conv_transpose1d_plain(x, w, stride=5,
+                                                       negative_slope=0.1)))
+    names = {_launch_local: "local_attention", _launch_full: "full_attention",
+             _launch_local_lse: "local_attention_fwd_lse",
+             _launch_convt: "conv_transpose"}
     res = {}
     for label, launch, args, ref in cases:
         fns = [lambda lib=lib: launch(lib.lib, *args) for lib in (old, new)]
-        name = ("local_attention" if launch is _launch_local
-                else "full_attention")
+        name = names[launch]
         for who, fn in zip(("parent", "this"), fns):
-            check_close(name, who, torch.bfloat16, fn(), ref)
+            got, want = fn(), ref
+            if isinstance(got, tuple):                 # row 3: (out, lse)
+                check_close(name, f"{who} lse", torch.bfloat16, got[1],
+                            want[1])
+                got, want = got[0], want[0]
+            check_close(name, who, torch.bfloat16, got, want)
         t, host = zip(*(timed(fns[i], iters=20) for i in (0, 1, 1, 0)))
         speedup = (t[0] + t[3]) / (t[1] + t[2])
         print(f"  {label}: parent {t[0]:.4f} / {t[3]:.4f} ms, this "
@@ -2261,6 +2412,36 @@ def phase_against_parent(parent: str, card: str) -> dict:
                       "parent_host_ms": [host[0], host[3]],
                       "host_ms": [host[1], host[2]]}
     return res
+
+
+# One tree's 1-step, long-form and train-step phases with their profiles,
+# run from that tree's root (``--paths-against``).
+_PATHS_IN_TURNS = """
+import chip_smoke as cs
+card = cs.phase_device()
+cs.phase_build()
+m = cs.phase_main_path(card)
+cs.phase_profile(m["fn"], m["inputs32"], card, "1-step batch 32")
+lf = cs.phase_longform(card)[4864]
+cs.phase_profile(lf["fn"], lf["inputs"], card, "long-form batch 4 x 4864")
+tr = cs.phase_train(card)
+cs.phase_profile(tr["fn"], tr["inputs"], card,
+                 "stage-1 train step, batch 16 x 1024")
+"""
+
+
+def phase_paths_against_parent(parent: str) -> None:
+    """The 1-step (batch 1 and 32), long-form and train-step phases, with
+    their profiles, of the tree unpacked at ``parent`` and of this one in
+    turns (parent, this, this, parent), each in its own process from its
+    own root, on one card."""
+    for who, root in (("parent", parent), ("this", REPO), ("this", REPO),
+                      ("parent", parent)):
+        print(f"== {who}: {Path(root).resolve()}", flush=True)
+        rc = subprocess.run([sys.executable, "-c", _PATHS_IN_TURNS],
+                            cwd=root).returncode
+        if rc != 0:
+            raise AssertionError(f"the paths of {root} exited with {rc}")
 
 
 def _profiled_call(fn, inputs, *, record_shapes: bool):
@@ -2323,8 +2504,12 @@ def phase_profile(fn, inputs, card: str, label: str) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", metavar="DIR",
-                    help="only time rows 1 and 2 (bf16) against the kernels "
-                         "of the tree unpacked at DIR, in turns")
+                    help="only time rows 1, 2, 3 and 10 (bf16) against the "
+                         "kernels of the tree unpacked at DIR, in turns")
+    ap.add_argument("--paths-against", metavar="DIR",
+                    help="only run the 1-step, long-form and train-step "
+                         "phases of the tree unpacked at DIR and of this "
+                         "one, in turns")
     args = ap.parse_args()
     with phase("device"):
         card = phase_device()
@@ -2334,6 +2519,10 @@ def main() -> None:
         with phase("against parent"):
             print(json.dumps({"against": phase_against_parent(args.against,
                                                               card)}))
+        return
+    if args.paths_against:
+        with phase("paths against parent"):
+            phase_paths_against_parent(args.paths_against)
         return
     with phase("kernels"):
         checks = phase_kernel_checks(card)

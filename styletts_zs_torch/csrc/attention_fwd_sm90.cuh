@@ -1,12 +1,14 @@
 // The bf16 flash-attention forward for Hopper (sm_90a) shared by chunk-local
-// attention (csrc/local_attention.cu, row 1) and full attention with a key
-// mask (csrc/full_attention.cu, row 2).  Each source includes this header
-// and instantiates attn_fwd_sm90_kernel with its mask policy; the policies
-// live here too, so that the one core is written and read once.
+// attention (csrc/local_attention.cu: row 1, and row 3, the same function
+// with each query's log-sum-exp) and full attention with a key mask
+// (csrc/full_attention.cu, row 2).  Each source includes this header and
+// instantiates attn_fwd_sm90_kernel with its mask policy and lse flag; the
+// policies live here too, so that the one core is written and read once.
 //
 // What it computes, for one (64-query tile, head, batch) per block: the
 // online softmax of q.k * D^-0.5 over the key tiles the policy walks, in
-// fp32, and the normalised sum of p.v, stored as bf16.  A masked key inside
+// fp32, and the normalised sum of p.v, stored as bf16 (with kLse, also the
+// row's log-sum-exp in fp32, natural log).  A masked key inside
 // the keys takes the logit -1e30, a key past Tk takes -inf; a row with no
 // valid key therefore averages its keys uniformly, as the Pallas kernels do.
 // Like the earlier tensor-core kernel it rounds the unnormalised p to bf16
@@ -64,12 +66,11 @@
 
 #pragma once
 
-#include <cuda.h>
-#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "sm90.cuh"
 
 namespace attn_sm90 {
 namespace {
@@ -85,41 +86,9 @@ constexpr int kScratchOffset = kBarOffset + 8 * (1 + kStages);
 constexpr int kBaseSmem = 1024 + kScratchOffset;  // + 1024 to align the base
 constexpr float kMasked = -1e30f;   // a masked key's logit (a key past Tk: -inf)
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
-// ---------------------------------------------------------------------------
-// PTX helpers: shared-memory addresses, mbarriers, TMA, wgmma
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
+using namespace sm90;
 
 // A 64 x 64 box at (d 0, t, h, b) of a (D, T, H, B) tensor map into shared
 // memory at dst, completing on bar.  Rows past T arrive as zeros.
@@ -127,12 +96,7 @@ __device__ __forceinline__ void tma_load_tile(uint32_t dst,
                                               const CUtensorMap* map,
                                               uint32_t bar, int t, int h,
                                               int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(t), "r"(h), "r"(b),
-      "r"(bar)
-      : "memory");
+  tma_load_4d(dst, map, bar, 0, t, h, b);
 }
 
 // One stage of the ring: the K (unless the block needs no scores) and V
@@ -146,35 +110,9 @@ __device__ __forceinline__ void load_kv(uint32_t sk, uint32_t sv, uint32_t bar,
   tma_load_tile(sv, mv, bar, key0, h, b);
 }
 
-// wgmma shared-memory descriptor of a 128-byte-swizzled tile: start address,
-// leading offset 0 (unused by these layouts), stride 1024 bytes between
-// groups of 8 rows, layout 1 (SWIZZLE_128B).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keep the compiler from moving accesses of an accumulator across the
-// asynchronous wgmma that reads or writes it.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+// wgmma descriptor of a 128-byte-swizzled tile of 64-element rows.
+__device__ __forceinline__ uint64_t desc128(uint32_t addr) {
+  return smem_desc(addr, 1024, 1);
 }
 
 #define ATTN_SM90_D32                                                         \
@@ -227,11 +165,6 @@ __device__ __forceinline__ float fast_exp2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
 }
 
 // Bits [a, b) of a 64-bit word, a and b clipped to [0, 64].
@@ -414,13 +347,19 @@ __device__ __forceinline__ void pack_p(const float (&s)[32],
 // At most 102 registers a thread, so five blocks fit an SM (42 KB of
 // shared memory each): 4-7 % faster than four at row 1's shapes on an H100
 // SXM (chip_smoke.py --against a tree without the bound).
-template <class Policy>
+// kLse (row 3): also store each query's log-sum-exp in natural log, fp32
+// (B, H, Tq): lse = m ln 2 + log(max(l, 1e-30)) from the base-2 running
+// max m and the row sum l; a row with no valid key keeps m = -1e30, so its
+// lse is -1e30 + log W = -1e30 in fp32, as the Pallas kernel gives it.
+// kLse = false (rows 1, 2) compiles none of it.
+template <class Policy, bool kLse>
 __global__ void __launch_bounds__(kThreads, 5)
 attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v,
                      const Policy policy, __nv_bfloat16* __restrict__ out,
-                     int Tq, int H, float scale_log2) {
+                     float* __restrict__ lse, int Tq, int H,
+                     float scale_log2) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;   // 128-byte swizzle: 1024
@@ -440,7 +379,7 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (tid == 0) {   // Q first: its copy overlaps the policy's mask reads
     mbar_init(bar_q, 1);
     for (int s = 0; s < kStages; ++s) mbar_init(full(s), 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
     mbar_expect_tx(bar_q, kTileBytes);
     tma_load_tile(sQ, &tm_q, bar_q, q0, h, b);
   }
@@ -462,7 +401,7 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   for (int i = 0; i < 32; ++i) o[i] = s[i] = 0.f;
   float m_run[2] = {kMasked, kMasked};
   float l_run[2] = {0.f, 0.f};   // this thread's share of the row sums
-  const uint64_t desc_q = smem_desc(sQ);
+  const uint64_t desc_q = desc128(sQ);
 
   mbar_wait(bar_q, 0);   // also before a block without scores may exit
   for (int i = 0; i < n; ++i) {
@@ -474,7 +413,7 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       uniform_weights(s, pol.in_keys(key0), quad, l_run);
     } else {
       // S = Q K^T over D in four k-steps of 16 (32 bytes of a swizzled row)
-      const uint64_t desc_k = smem_desc(sK(st));
+      const uint64_t desc_k = desc128(sK(st));
       fence_regs(s);
       wgmma_fence();
 #pragma unroll
@@ -491,7 +430,7 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     pack_p(s, p);
 
     // O += P V over the tile's keys in four k-steps of 16 (2048 bytes of V)
-    const uint64_t desc_v = smem_desc(sV(st));
+    const uint64_t desc_v = desc128(sV(st));
     fence_regs(o);
     fence_regs(p);
     wgmma_fence();
@@ -516,6 +455,13 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   for (int r = 0; r < 2; ++r) {
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+    if constexpr (kLse) {
+      const int row = q0 + 16 * warp + lane / 4 + 8 * r;
+      if (quad == 0 && row < Tq)
+        lse[(static_cast<long long>(b) * H + h) * Tq + row] =
+            (pol.none_valid ? kMasked : m_run[r] * kLn2) +
+            logf(fmaxf(l_run[r], 1e-30f));
+    }
     l_run[r] = 1.f / fmaxf(l_run[r], 1e-30f);
   }
 #pragma unroll
@@ -546,29 +492,11 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 // Host side
 // ---------------------------------------------------------------------------
 
-// cuTensorMapEncodeTiled from the driver, found through the runtime so the
-// library needs no -lcuda.
-PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr,
-                                         12000, cudaEnableDefault,
-                                         &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(ptr);
-  }
-  return fn;
-}
-
 // A (D, T, H, B) bf16 tensor map of a (B, T, H, D) view with element strides
 // st[0..2] = (b, t, h), read in 64 x 64 boxes with 128-byte swizzle.  A
 // dimension of extent 1 gets its contiguous stride (its own is never used).
 bool encode_view(CUtensorMap* map, const void* ptr, int B, int T, int H,
                  const long long* st) {
-  PFN_cuTensorMapEncodeTiled_v12000 encode = encode_fn();
-  if (encode == nullptr) return false;
   const long long sb = B > 1 ? st[0] : static_cast<long long>(T) * H * kD;
   const long long stt = T > 1 ? st[1] : static_cast<long long>(H) * kD;
   const long long sh = H > 1 ? st[2] : kD;
@@ -579,49 +507,46 @@ bool encode_view(CUtensorMap* map, const void* ptr, int B, int T, int H,
                                  static_cast<cuuint64_t>(sh) * 2,
                                  static_cast<cuuint64_t>(sb) * 2};
   const cuuint32_t box[4] = {kD, kTile, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_bf16(map, ptr, 4, dims, strides, box,
+                     CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // Launch on `stream`: q (B, Tq, H, 64), k/v (B, Tk, H, 64) bf16 views with
-// element strides (b, t, h), 16-byte aligned; out contiguous (B, Tq, H, 64).
-// scratch: the policy's shared memory beyond the tiles.  Returns a
-// cudaError_t.
-template <class Policy>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Tq, int Tk, int H, const long long* qs, const long long* ks,
-           const long long* vs, const Policy& policy, int scratch,
-           float scale, cudaStream_t stream) {
+// element strides (b, t, h), 16-byte aligned; out contiguous (B, Tq, H, 64);
+// with kLse, lse contiguous (B, H, Tq) fp32 (else null).  scratch: the
+// policy's shared memory beyond the tiles.  Returns a cudaError_t.
+template <class Policy, bool kLse = false>
+int launch(const void* q, const void* k, const void* v, void* out, float* lse,
+           int B, int Tq, int Tk, int H, const long long* qs,
+           const long long* ks, const long long* vs, const Policy& policy,
+           int scratch, float scale, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   if (!encode_view(&tq, q, B, Tq, H, qs) || !encode_view(&tk, k, B, Tk, H, ks) ||
       !encode_view(&tv, v, B, Tk, H, vs))
     return (int)cudaErrorInvalidValue;
   const int smem = kBaseSmem + scratch;
   cudaError_t err = cudaFuncSetAttribute(
-      attn_fwd_sm90_kernel<Policy>,
+      attn_fwd_sm90_kernel<Policy, kLse>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Tq + kTile - 1) / kTile, H, B);
-  attn_fwd_sm90_kernel<Policy><<<grid, kThreads, smem, stream>>>(
-      tq, tk, tv, policy, static_cast<__nv_bfloat16*>(out), Tq, H,
+  attn_fwd_sm90_kernel<Policy, kLse><<<grid, kThreads, smem, stream>>>(
+      tq, tk, tv, policy, static_cast<__nv_bfloat16*>(out), lse, Tq, H,
       scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
 // Blocks per SM and dynamic shared memory per block of the kernel.
-template <class Policy>
+template <class Policy, bool kLse = false>
 int occupancy(int scratch, int* blocks_per_sm, int* smem_bytes) {
   *smem_bytes = kBaseSmem + scratch;
   cudaError_t err = cudaFuncSetAttribute(
-      attn_fwd_sm90_kernel<Policy>,
+      attn_fwd_sm90_kernel<Policy, kLse>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, *smem_bytes);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, attn_fwd_sm90_kernel<Policy>, kThreads, *smem_bytes);
+      blocks_per_sm, attn_fwd_sm90_kernel<Policy, kLse>, kThreads,
+      *smem_bytes);
 }
 
 }  // namespace

@@ -210,8 +210,8 @@ struct Args {
 
 int launch_sm90(const Args& a, cudaStream_t stream) {
   const attn_sm90::KeyMaskPolicy pol{a.mask, a.m_sb, a.Tk};
-  return attn_sm90::launch(a.q, a.k, a.v, a.out, a.B, a.Tq, a.Tk, a.H, a.qs,
-                           a.ks, a.vs, pol,
+  return attn_sm90::launch(a.q, a.k, a.v, a.out, nullptr, a.B, a.Tq, a.Tk,
+                           a.H, a.qs, a.ks, a.vs, pol,
                            attn_sm90::KeyMaskPolicy::scratch_bytes(a.Tk),
                            a.scale, stream);
 }

@@ -30,19 +30,13 @@
 //
 // Design: one block per (query tile of 64, head, batch) walks key tiles of
 // 64 with an online (flash-style) softmax, so no (T, W) score matrix
-// reaches device memory.  Three variants, chosen by entry point, dtype and
-// alignment:
-//  - bf16 with 16-byte-aligned rows, no lse (row 1's main path):
-//    attention_fwd_sm90.cuh with LocalBandPolicy -- TMA ring of K/V tiles,
-//    wgmma for Q K^T and P V with S, P and O in registers, and only the key
-//    tiles of [max(s0, band_lo), min(s0 + W, band_hi, length)) walked
-//    (kernels/local_attention.py::valid_key_tiles; the whole window when
-//    that is empty).
-//  - bf16 with 16-byte-aligned rows and the lse (row 3):
-//    local_attn_fwd_tc_kernel<true> -- 16x16x16 warp MMAs with fp32
-//    accumulation; four warps of 16 query rows each; the softmax in fp32 on
-//    the CUDA cores, two lanes per row, through shared memory; every tile of
-//    the window walked.  P is rounded to bf16 before PV.
+// reaches device memory.  Two variants, chosen by dtype and alignment:
+//  - bf16 with 16-byte-aligned rows (rows 1 and 3; row 3 with the core's
+//    kLse output): attention_fwd_sm90.cuh with LocalBandPolicy -- TMA ring
+//    of K/V tiles, wgmma for Q K^T and P V with S, P and O in registers,
+//    and only the key tiles of [max(s0, band_lo), min(s0 + W, band_hi,
+//    length)) walked (kernels/local_attention.py::valid_key_tiles; the
+//    whole window when that is empty).
 //  - fp32 (and unaligned bf16): 256 threads, each owning a 4x4 micro-tile
 //    of the 64x64 score tile and of the 64x64 output tile (rows ty + 16a,
 //    columns tx + 16j) on the CUDA cores; rows padded to 65 floats so the
@@ -50,7 +44,6 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include "attention_fwd_sm90.cuh"
 
@@ -212,193 +205,6 @@ local_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ---------------------------------------------------------------------------
-// bf16 tensor-core variant
-// ---------------------------------------------------------------------------
-
-constexpr int kTcThreads = 128;    // 4 warps x 16 query rows
-constexpr int kLdh = kD + 8;       // bf16 row stride: 144 bytes
-constexpr int kLds = kD + 4;       // fp32 row stride: 272 bytes
-
-template <bool kLse>
-__global__ void __launch_bounds__(kTcThreads)
-local_attn_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const int* __restrict__ lengths,
-                         __nv_bfloat16* __restrict__ out,
-                         float* __restrict__ lse, int T_total, int H,
-                         int chunk, long long q_sb, long long q_st,
-                         long long q_sh, long long k_sb, long long k_st,
-                         long long k_sh, long long v_sb, long long v_st,
-                         long long v_sh, float scale) {
-  using namespace nvcuda;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64][kLdh]
-  __nv_bfloat16* Ks = Qs + kBQ * kLdh;                              // [64][kLdh]
-  __nv_bfloat16* Vs = Ks + kBK * kLdh;                              // [64][kLdh]
-  __nv_bfloat16* Ps = Vs + kBK * kLdh;                              // [64][kLdh]
-  float* Ss = reinterpret_cast<float*>(Ps + kBQ * kLdh);            // [64][kLds]
-
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int row = 16 * warp + lane / 2;     // this lane's query row
-  const int half = lane % 2;                // and its 32 keys / 32 dims
-
-  const int ci = q0 / chunk;
-  const int win = min(3 * chunk, T_total);
-  int s0 = (ci - 1) * chunk;
-  s0 = max(0, min(s0, T_total - win));
-  const int band_lo = (ci - 1) * chunk;
-  const int band_hi = (ci + 2) * chunk;
-  const int len = lengths[b];
-
-  const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
-  const __nv_bfloat16* kb = k + b * k_sb + h * k_sh;
-  const __nv_bfloat16* vb = v + b * v_sb + h * v_sh;
-
-  // 16-byte vectors: 8 per 64-element row
-  for (int idx = tid; idx < kBQ * 8; idx += kTcThreads) {
-    const int r = idx / 8, c = idx % 8;
-    *reinterpret_cast<uint4*>(Qs + r * kLdh + 8 * c) =
-        *reinterpret_cast<const uint4*>(qb + (long long)(q0 + r) * q_st + 8 * c);
-  }
-
-  float m_run = kNegInf, l_run = 0.f;
-  float o[32];
-#pragma unroll
-  for (int d = 0; d < 32; ++d) o[d] = 0.f;
-
-  const int n_tiles = win / kBK;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int kbase = s0 + kt * kBK;
-    __syncthreads();  // every warp is done with the previous Ks/Vs
-    for (int idx = tid; idx < kBK * 8; idx += kTcThreads) {
-      const int r = idx / 8, c = idx % 8;
-      *reinterpret_cast<uint4*>(Ks + r * kLdh + 8 * c) =
-          *reinterpret_cast<const uint4*>(kb + (long long)(kbase + r) * k_st + 8 * c);
-      *reinterpret_cast<uint4*>(Vs + r * kLdh + 8 * c) =
-          *reinterpret_cast<const uint4*>(vb + (long long)(kbase + r) * v_st + 8 * c);
-    }
-    __syncthreads();
-
-    // S[16 rows of this warp][64 keys] = Q K^T
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sf[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wmma::fill_fragment(sf[j], 0.f);
-#pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> a;
-        wmma::load_matrix_sync(a, Qs + 16 * warp * kLdh + 16 * kk, kLdh);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::col_major> bk;
-          wmma::load_matrix_sync(bk, Ks + 16 * j * kLdh + 16 * kk, kLdh);
-          wmma::mma_sync(sf[j], a, bk, sf[j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::store_matrix_sync(Ss + 16 * warp * kLds + 16 * j, sf[j], kLds,
-                                wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // online softmax for this lane's row over its 32 keys; the pair of
-    // lanes (row, half 0/1) combines with one shuffle
-    float* srow = Ss + row * kLds + 32 * half;
-    float mx = kNegInf;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int key = kbase + 32 * half + j;
-      const bool valid = key >= band_lo && key < band_hi && key < len;
-      const float sv = valid ? srow[j] * scale : kNegInf;
-      srow[j] = sv;
-      mx = fmaxf(mx, sv);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m_run, mx);
-    const float alpha = expf(m_run - m_new);
-    float rsum = 0.f;
-    __nv_bfloat16* prow = Ps + row * kLdh + 32 * half;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const float p = expf(srow[j] - m_new);
-      rsum += p;
-      prow[j] = __float2bfloat16(p);
-    }
-    rsum += __shfl_xor_sync(0xffffffffu, rsum, 1);
-    l_run = l_run * alpha + rsum;
-    m_run = m_new;
-    __syncwarp();
-
-    // this tile's P V for the warp's rows, through Ss
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> of[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wmma::fill_fragment(of[j], 0.f);
-#pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> a;
-        wmma::load_matrix_sync(a, Ps + 16 * warp * kLdh + 16 * kk, kLdh);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major> bv;
-          wmma::load_matrix_sync(bv, Vs + 16 * kk * kLdh + 16 * j, kLdh);
-          wmma::mma_sync(of[j], a, bv, of[j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::store_matrix_sync(Ss + 16 * warp * kLds + 16 * j, of[j], kLds,
-                                wmma::mem_row_major);
-    }
-    __syncwarp();
-    const float* pv = Ss + row * kLds + 32 * half;
-#pragma unroll
-    for (int d = 0; d < 32; ++d) o[d] = o[d] * alpha + pv[d];
-  }
-
-  const float inv = 1.f / fmaxf(l_run, 1e-30f);
-  if (kLse && half == 0)
-    lse[((long long)b * H + h) * T_total + q0 + row] =
-        m_run + logf(fmaxf(l_run, 1e-30f));
-  __nv_bfloat16* orow =
-      out + (((long long)b * T_total + q0 + row) * H + h) * kD + 32 * half;
-#pragma unroll
-  for (int d = 0; d < 32; d += 2)
-    *reinterpret_cast<__nv_bfloat162*>(orow + d) =
-        __floats2bfloat162_rn(o[d] * inv, o[d + 1] * inv);
-}
-
-template <bool kLse>
-int launch_tc(const void* q, const void* k, const void* v, const int* lengths,
-              void* out, float* lse, int B, int T_total, int H, int chunk,
-              const long long* qs, const long long* ks, const long long* vs,
-              float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(__nv_bfloat16) * 4 * kBQ * kLdh +
-                      sizeof(float) * kBQ * kLds;
-  cudaError_t err = cudaFuncSetAttribute(
-      local_attn_fwd_tc_kernel<kLse>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(T_total / kBQ, H, B);
-  local_attn_fwd_tc_kernel<kLse><<<grid, kTcThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), lengths,
-      static_cast<__nv_bfloat16*>(out), lse, T_total, H, chunk, qs[0], qs[1],
-      qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], scale);
-  return (int)cudaGetLastError();
-}
-
 bool aligned16(const void* p, const long long* strides) {
   if (reinterpret_cast<unsigned long long>(p) % 16 != 0) return false;
   for (int i = 0; i < 3; ++i)
@@ -436,15 +242,10 @@ int dispatch(int dtype, const void* q, const void* k, const void* v,
   if (dtype == 0)
     return launch<float, kLse>(q, k, v, lengths, out, lse, B, T, H, chunk, qs,
                                ks, vs, scale, st);
-  if (dtype == 1 && aligned16(q, qs) && aligned16(k, ks) && aligned16(v, vs)) {
-    if constexpr (kLse)
-      return launch_tc<true>(q, k, v, lengths, out, lse, B, T, H, chunk, qs,
-                             ks, vs, scale, st);
-    else
-      return attn_sm90::launch(q, k, v, out, B, T, T, H, qs, ks, vs,
-                               attn_sm90::LocalBandPolicy{lengths, T, chunk},
-                               0, scale, st);
-  }
+  if (dtype == 1 && aligned16(q, qs) && aligned16(k, ks) && aligned16(v, vs))
+    return attn_sm90::launch<attn_sm90::LocalBandPolicy, kLse>(
+        q, k, v, out, lse, B, T, T, H, qs, ks, vs,
+        attn_sm90::LocalBandPolicy{lengths, T, chunk}, 0, scale, st);
   if (dtype == 1)
     return launch<__nv_bfloat16, kLse>(q, k, v, lengths, out, lse, B, T, H,
                                        chunk, qs, ks, vs, scale, st);

@@ -7,7 +7,8 @@ headers are compiled, so the build takes as long as the slowest source.
 The library goes to ``build/`` at the repository root (listed in
 ``.gitignore``), named by a hash of the sources, the headers they include
 (``csrc/*.cuh``) and the flags, so an unchanged tree loads the library it
-already built and an edited header builds anew.  Nothing here runs at
+already built (with nvcc's output, kept beside it) and an edited header
+builds anew.  Nothing here runs at
 import time: the first kernel launch calls ``library()``.  A failed build
 or launch raises ``KernelError``, which is not a ``RuntimeError``: the
 server requeues a batch on a runtime error, and must never requeue a
@@ -83,8 +84,9 @@ _SIGNATURES = {
     "conv_transpose_fwd": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L,
                            _L, _I, _F, _P],
     # blocks per SM and dynamic shared memory per block (int pointers) of
-    # the bf16 forwards of rows 1 and 2 (the latter at Tk keys)
+    # the bf16 kernels of rows 1, 10 and 2 (the latter at Tk keys)
     "local_attention_fwd_occupancy": [_P, _P],
+    "conv_transpose_fwd_occupancy": [_P, _P],
     "full_attention_fwd_occupancy": [_I, _P, _P],
 }
 
@@ -100,6 +102,7 @@ class KernelLibrary:
     path: Path
     build_seconds: float     # 0.0 when an existing build was loaded
     log: str                 # nvcc's output, ``-Xptxas -v`` lines included
+                             # (kept beside the library for a later load)
 
 
 def sources() -> list[Path]:
@@ -139,8 +142,12 @@ def library() -> KernelLibrary:
     srcs = sources()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     path = BUILD_DIR / f"libstyletts_zs_kernels-{digest()}.so"
-    seconds, log = 0.0, "loaded an existing build"
-    if not path.exists():
+    log_path = path.with_suffix(".log")
+    seconds = 0.0
+    if path.exists():
+        log = (log_path.read_text() if log_path.exists()
+               else "loaded an existing build")
+    else:
         t0 = time.perf_counter()
         tag = f"{path.stem}.{os.getpid()}"
         objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in srcs]
@@ -159,6 +166,7 @@ def library() -> KernelLibrary:
         log += proc.stdout + proc.stderr
         if proc.returncode != 0:
             raise KernelError(f"nvcc link failed:\n{log}")
+        log_path.write_text(log)
         os.replace(tmp, path)
         for obj in objs:
             obj.unlink()

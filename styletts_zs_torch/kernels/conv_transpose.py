@@ -57,16 +57,50 @@ def conv_transpose1d_plain(x, kernel, *, stride: int,
     return torch.stack(phases, dim=2).reshape(B, T * stride, C_out)
 
 
+# What the bf16 kernel (wgmma on TMA tiles) takes: the vocoder's K and
+# stride, output channels in tiles of 64, frames in multiples of 8 (16-byte
+# aligned output rows and TMA strides).
+BF16_K, BF16_STRIDE, BF16_COUT_TILE = 10, 5, 64
+
+
+def bf16_layout(x, kernel, stride: int) -> str:
+    """The layout in which the bf16 kernel reads x: ``"frames"`` (x a
+    (B, T, Cin) view of (B, Cin, T) memory, as the vocoder hands it over)
+    or ``"channels"`` (channels last).  Raises ``ValueError`` on what the
+    kernel does not take: another K or stride, Cout not a multiple of 64,
+    T not a multiple of 8, x or its strides not 16-byte aligned (TMA), or x
+    with neither frames nor channels contiguous.  Reads shapes, strides and
+    the address only, so it runs on any device."""
+    B, T, C_in = x.shape
+    K, _, C_out = kernel.shape
+    sb, st, sc = x.stride()
+    if (K, stride) != (BF16_K, BF16_STRIDE) or C_out % BF16_COUT_TILE:
+        raise ValueError(f"bf16 takes K {BF16_K}, stride {BF16_STRIDE} and "
+                         f"Cout a multiple of {BF16_COUT_TILE}; got K {K}, "
+                         f"stride {stride}, Cout {C_out}")
+    if T % 8 or x.data_ptr() % 16 or (B > 1 and sb % 8):
+        raise ValueError(f"bf16 needs T % 8 == 0 and x 16-byte aligned with "
+                         f"its batch stride a multiple of 8; got T {T}, "
+                         f"strides {x.stride()}")
+    if st == 1 and (sc % 8 == 0 or C_in == 1):
+        return "frames"
+    if sc == 1 and st % 8 == 0:
+        return "channels"
+    raise ValueError(f"bf16 needs x with frames or channels contiguous and "
+                     f"the other stride a multiple of 8; got strides "
+                     f"{x.stride()}")
+
+
 def conv_transpose1d_cuda(x, kernel, *, stride: int,
                           negative_slope: float | None = None):
     """Launch ``csrc/conv_transpose.cu`` on the current stream.
 
-    x (B, T, Cin): an fp32 or bf16 CUDA tensor with any strides (the
-    vocoder's (B, C, T)-major activations are read in place); kernel
-    (K, Cin, Cout), cast to x's dtype, K >= stride; bf16 needs Cout % 8 ==
-    0 and at most 33 taps a phase.  Returns (B, T*stride, Cout) as a view of (B, Cout, T*stride)
-    memory, the layout the vocoder's resblock convs take without a copy.
-    Raises on anything else.
+    x (B, T, Cin): an fp32 or bf16 CUDA tensor (the vocoder's (B, C,
+    T)-major activations are read in place); kernel (K, Cin, Cout), cast to
+    x's dtype, K >= stride.  fp32 takes any strides; bf16 what
+    ``bf16_layout`` takes.  Returns (B, T*stride, Cout) as a view of (B,
+    Cout, T*stride) memory, the layout the vocoder's resblock convs take
+    without a copy.  Raises on anything else.
     """
     global launches
     B, T, C_in = x.shape
@@ -77,10 +111,8 @@ def conv_transpose1d_cuda(x, kernel, *, stride: int,
     if kernel.shape != (K, C_in, C_out) or K < stride or stride < 1:
         raise ValueError(f"kernel {tuple(kernel.shape)} does not fit x "
                          f"{tuple(x.shape)} at stride {stride}")
-    if x.dtype == torch.bfloat16 and (
-            C_out % 8 or max(map(len, phase_taps(K, stride))) > 33):
-        raise ValueError(f"bf16 needs Cout % 8 == 0 and at most 33 taps a "
-                         f"phase, got Cout {C_out}, K {K}, stride {stride}")
+    if x.dtype == torch.bfloat16:
+        bf16_layout(x, kernel, stride)
     w = kernel.to(x.dtype).contiguous()
     out = torch.empty(B, C_out, T * stride, dtype=x.dtype, device=x.device)
     rc = build.library().lib.conv_transpose_fwd(

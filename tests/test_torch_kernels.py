@@ -9,6 +9,7 @@ JAX's; and the routing and the wrappers' refusals are checked.
 """
 import importlib.util
 import shutil
+import types
 from pathlib import Path
 
 import jax
@@ -327,7 +328,8 @@ def test_build_lists_every_source_and_names_the_target():
                      "conv_transpose.cu", "full_attention.cu", "istft.cu",
                      "local_attention.cu", "local_attention_bwd.cu",
                      "sampler.cu", "synthesis_head.cu"]
-    assert [p.name for p in build.headers()] == ["attention_fwd_sm90.cuh"]
+    assert [p.name for p in build.headers()] == ["attention_fwd_sm90.cuh",
+                                                 "sm90.cuh"]
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     for p in build.sources():
         src = p.read_text()
@@ -336,7 +338,7 @@ def test_build_lists_every_source_and_names_the_target():
         assert "#include <torch" not in p.read_text()
 
 
-@pytest.mark.parametrize("edited", ["attention_fwd_sm90.cuh",
+@pytest.mark.parametrize("edited", ["attention_fwd_sm90.cuh", "sm90.cuh",
                                     "local_attention.cu"])
 def test_build_digest_covers_sources_and_headers(tmp_path, monkeypatch,
                                                  edited):
@@ -351,6 +353,28 @@ def test_build_digest_covers_sources_and_headers(tmp_path, monkeypatch,
     f = csrc / edited
     f.write_text(f.read_text() + "\n// edited\n")
     assert build.digest() != before
+
+
+def test_build_loads_an_existing_library_with_its_log(tmp_path, monkeypatch):
+    """A library built earlier is loaded with the nvcc log kept beside it,
+    so a later process (``chip_smoke.py --against``) still prints its
+    registers and spills; without the log it says so."""
+    class FakeLib:
+        def __getattr__(self, name):
+            return types.SimpleNamespace()
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build.ctypes, "CDLL", lambda path: FakeLib())
+    path = tmp_path / f"libstyletts_zs_kernels-{build.digest()}.so"
+    path.write_bytes(b"")
+    build.library.cache_clear()
+    try:
+        assert build.library().log == "loaded an existing build"
+        build.library.cache_clear()
+        path.with_suffix(".log").write_text("ptxas info : Used 209 registers")
+        lib = build.library()
+        assert "Used 209 registers" in lib.log and lib.build_seconds == 0.0
+    finally:
+        build.library.cache_clear()
 
 
 # --- rows 1 and 2: the key tiles the bf16 kernels walk -----------------------
@@ -568,6 +592,92 @@ def test_local_attention_train_plain_matches_pallas(T, zero_masked_rows):
     for got, ref in ((out, out_j), (lse, lse_j), (dq, dq_j), (dk, dk_j),
                      (dv, dv_j)):
         np.testing.assert_allclose(n(got), n(ref), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("T", [384, 512])
+def test_local_attention_fwd_lse_plain_on_rows_with_no_valid_key(T):
+    """Row 3's plain version against ``local_attention_fwd_pallas`` in
+    interpret mode on a length-0 row (every chunk without a valid key) and
+    a length T - 2c (the last chunk without one): lse exactly -1e30 there,
+    as the Pallas kernel gives it and rows 4-5 read it, and out the
+    window's mean.  fp32: 1e-4."""
+    B, H, D = 2, 2, 64
+    q, k, v = (rnd(B, T, H, D, seed=s) for s in (31, 32, 33))
+    lengths = np.array([0, T - 2 * TRAIN_CHUNK], np.int32)
+    mask = np.arange(T)[None] < lengths[:, None]
+    out_j, res = attention_kernel.local_attention_fwd_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), chunk=TRAIN_CHUNK,
+        kv_mask=jnp.asarray(mask))
+    lse_j = np.asarray(res[4])[:, :, 0, :]
+    out, lse = la.local_attention_fwd_lse_plain(t(q), t(k), t(v), t(lengths),
+                                                chunk=TRAIN_CHUNK)
+    last = slice(T - TRAIN_CHUNK, T)
+    for got in (n(lse), lse_j):
+        assert (got[0] == np.float32(-1e30)).all()
+        assert (got[1, :, last] == np.float32(-1e30)).all()
+        assert (got[1, :, :T - TRAIN_CHUNK] > -1e29).all()
+    np.testing.assert_allclose(n(out), n(out_j), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(n(lse), lse_j, atol=1e-4, rtol=1e-4)
+    W = min(3 * TRAIN_CHUNK, T)
+    np.testing.assert_allclose(n(out)[1, last], np.broadcast_to(
+        v[1, T - W:].mean(0), (TRAIN_CHUNK, H, D)), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("T_", [128, 256])
+def test_local_attention_train_bound_counts_what_the_function_needs(T_):
+    """chip_smoke's bound for rows 3-5: the rows of q, k, v and g each
+    plain version reads are those its output depends on (nonzero gradients
+    on random inputs), plus the outputs, lse, delta and the lengths; the
+    products are those of the nonzero probabilities p = exp(s - lse): 4D
+    (row 3), 6D (row 4) or 8D (row 5) a valid pair, 4D a pair of a chunk
+    with no valid key, where p = 1 whatever the scores (g V^T and dS K or
+    dS^T Q; its P^T g is a sum)."""
+    chunk, H, D = 64, 2, 16
+    lens = [0, 1, chunk, 100, T_]
+    B = len(lens)
+    q, k, v, g = (t(rnd(B, T_, H, D, seed=s)) for s in (45, 46, 47, 48))
+    lengths = torch.tensor(lens, dtype=torch.int32)
+    out, lse = la.local_attention_fwd_lse_plain(q, k, v, lengths, chunk=chunk)
+    delta = t(rnd(B, H, T_, seed=49))
+    work = _chip_smoke()._attention_train_work(lengths, T_, H, D, chunk, 2)
+    stat, lens_bytes = B * H * T_ * 4, 4 * B
+
+    def rows_read(fn):
+        xs = [a.clone().requires_grad_() for a in (q, k, v, g)]
+        grads = torch.autograd.grad(
+            sum((o * torch.linspace(1, 2, o.numel()).reshape(o.shape)).sum()
+                for o in fn(*xs)), xs, allow_unused=True)
+        return sum(0 if gr is None else int((gr != 0).any(-1).any(-1).sum())
+                   for gr in grads)
+
+    key_t = torch.arange(T_)
+    band = ((key_t[:, None] // chunk) - (key_t[None, :] // chunk)).abs() <= 1
+    key_ok = (key_t[None] < lengths[:, None])[:, None, None, :]  # (B,1,1,T)
+
+    # row 4: dq over each query chunk's clipped window
+    logits, _ = la._window(q, k, lengths, chunk)
+    p = torch.exp(logits - la._per_chunk(lse, logits.shape[1]))
+    valid = logits != NEG_INF
+    rows = rows_read(lambda q_, k_, v_, g_: (la.local_attention_bwd_dq_plain(
+        q_, k_, v_, g_, lse, delta, lengths, chunk=chunk),)) + B * T_
+    flops = D * (6 * int(valid.sum()) + 4 * int(((p > 0) & ~valid).sum()))
+    assert work["local_attention_bwd_dq"] == (
+        rows * H * D * 2 + 2 * stat + lens_bytes, flops)
+
+    # row 5: key chunk j against query chunks j-1..j+1, masked by length
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * D ** -0.5
+    s = s.masked_fill(~key_ok, NEG_INF)
+    p = torch.exp(s - lse[..., None]) * band
+    rows = rows_read(lambda q_, k_, v_, g_: la.local_attention_bwd_dkv_plain(
+        q_, k_, v_, g_, lse, delta, lengths, chunk=chunk)) + 2 * B * T_
+    flops = D * (8 * int(((p > 0) & key_ok).sum())
+                 + 4 * int(((p > 0) & ~key_ok).sum()))
+    assert work["local_attention_bwd_dkv"] == (
+        rows * H * D * 2 + 2 * stat + lens_bytes, flops)
+
+    # row 3: row 1's work and the lse written
+    fwd = _chip_smoke()._attention_work(lengths, T_, H, D, chunk, 2)
+    assert work["local_attention_fwd_lse"] == (fwd[0] + stat, fwd[1])
 
 
 def test_local_attention_train_plain_matches_twin_vjp_at_two_chunks():

@@ -159,6 +159,44 @@ def test_conv_transpose_taps_cover_the_kernel_once():
     assert [len(taps) for taps in ct.phase_taps(10, 5)] == [2] * 5
 
 
+def _bf16_view(B, T, C, layout, offset=0):
+    """A bf16 (B, T, C) CPU tensor laid out as the card would get it."""
+    if layout == "frames":      # the vocoder's (B, C, T)-major view
+        return torch.zeros(B, C, T, dtype=torch.bfloat16).transpose(1, 2)
+    if layout == "channels":
+        return torch.zeros(B * T * C + offset, dtype=torch.bfloat16)[
+            offset:].view(B, T, C)
+    return torch.zeros(B, T, C, 2, dtype=torch.bfloat16)[..., 0]
+
+
+@pytest.mark.parametrize("case,want", [
+    ((2, 64, 32, 64, 10, 5, "frames", 0), "frames"),
+    ((2, 64, 32, 128, 10, 5, "channels", 0), "channels"),
+    ((1, 8, 1, 64, 10, 5, "frames", 0), "frames"),
+    ((2, 64, 32, 64, 11, 5, "frames", 0), None),     # K
+    ((2, 64, 32, 64, 10, 2, "frames", 0), None),     # stride
+    ((2, 64, 32, 96, 10, 5, "frames", 0), None),     # Cout not a tile multiple
+    ((2, 60, 32, 64, 10, 5, "frames", 0), None),     # T % 8
+    ((2, 64, 32, 64, 10, 5, "neither", 0), None),    # no contiguous dim
+    ((2, 64, 32, 64, 10, 5, "channels", 1), None),   # 2-byte aligned x
+    ((2, 64, 12, 64, 10, 5, "channels", 0), None),   # 24-byte frame stride
+])
+def test_conv_transpose_bf16_layout_takes_what_the_kernel_takes(case, want):
+    """The bf16 kernel's argument checks, on the CPU: it takes the
+    vocoder's K 10 / stride 5 with Cout in tiles of 64 and T % 8 == 0, from
+    the (B, C, T)-major view or channels last with 16-byte aligned rows
+    (TMA), and the wrapper raises on anything else, with no plain
+    fallback."""
+    B, T, C, C_out, K, stride, layout, offset = case
+    x = _bf16_view(B, T, C, layout, offset)
+    w = torch.zeros(K, C, C_out, dtype=torch.bfloat16)
+    if want is None:
+        with pytest.raises(ValueError):
+            ct.bf16_layout(x, w, stride)
+    else:
+        assert ct.bf16_layout(x, w, stride) == want
+
+
 def test_conv_transpose_bf16_rounds_like_pallas():
     x = rnd((2, 40, 16), 8)
     w = rnd((10, 16, 16), 9, 0.2)

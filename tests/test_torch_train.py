@@ -49,6 +49,17 @@ GRAD_RTOL, GRAD_FLOOR = 1e-3, 1e-6
 N_FRAMES, TEXT_LEN = 128, 16   # 4 decoder chunks of 32: the local backward
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """Every test on one torch thread, as the other files' fixtures set it,
+    also those that run before ``world`` in a fresh worker: run first in its
+    worker at the default eight threads, with the host's cores shared among
+    six workers, the spectrogram test once put about 13 whole frames 3e-4
+    (relative) off JAX's, far beyond summation order (the two agree to the
+    bit at power 2 on one thread or eight)."""
+    torch.set_num_threads(1)
+
+
 def _no_dropout(cfg):
     m = cfg.model
     return dataclasses.replace(cfg, model=dataclasses.replace(
