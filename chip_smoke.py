@@ -29,7 +29,9 @@ Phases, one line each with its seconds:
                   bf16, weights from a seed) at batch 1 and 32, checking the
                   waveforms, the kernel launch counts per call, audio-s/s,
                   the real-time factor, peak memory, and the mel MAE against
-                  the fp32 plain path on the CPU;
+                  the fp32 plain path on the CPU (also with the CPU's
+                  durations fed in, with the card's and with the CPU's
+                  style: duration flips against the kernels' drift);
   5. profile    — device time by kernel for one batch-32 1-step call;
   6. multi-step — acceptance config 3 (``configs/multistep_b32.toml``: batch
                   32, 16 Heun steps, guidance 3, mel without the vocoder) on
@@ -65,7 +67,9 @@ Phases, one line each with its seconds:
  14. verify     — the numerics gate, acceptance level 1
                   (``run_verification(max_frames=256, device="cuda")``).
 Phase 3 also holds the training kernels (rows 3-5: the local-attention
-forward with its log-sum-exp and the dq, dk/dv backward; row 7: the AdaIN
+forward with its log-sum-exp and the dq, dk/dv backward, with the
+cotangent zeroed past the length as the decoder does and live there, and
+the count of tile pairs each kind of the bf16 walk meets; row 7: the AdaIN
 conv backward-data) against their plain versions at the train step's
 shapes, and row 11, the standalone iSTFT, at the vocoder head's two
 shapes; right after it, row 11's one entry point (``dispatch.istft_head``,
@@ -78,8 +82,8 @@ phase 1.  It imports nothing of JAX.
 
     python3 chip_smoke.py --against build/parent
 
-runs phases 1 and 2 and then only times rows 1, 2, 3 and 10 in bf16, at
-every shape the paths launch them, against the kernels of another tree
+runs phases 1 and 2 and then only times rows 1, 2, 3, 4, 5 and 10 in bf16,
+at every shape the paths launch them, against the kernels of another tree
 unpacked at that directory (``git archive <commit> | tar -x -C
 build/parent``; its ``kernels/build.py`` builds them into its own
 ``build/``), each held against the plain version, in turns (parent, this,
@@ -134,7 +138,8 @@ from styletts_zs_torch.pipelines.infer import make_synthesis_fn  # noqa: E402
 from styletts_zs_torch.pipelines.serve import Request, Server  # noqa: E402
 from styletts_zs_torch.pipelines.train import (Stage1Trainer,  # noqa: E402
                                                batch_to_device)
-from styletts_zs_torch.pipelines.verify import run_verification  # noqa: E402
+from styletts_zs_torch.pipelines.verify import (  # noqa: E402
+    _run as run_with_durations, run_verification)
 from styletts_zs_torch.utils import text as text_utils  # noqa: E402
 
 REPO = Path(__file__).resolve().parent
@@ -198,6 +203,24 @@ TOL = {
     # on either device) sums the same products transposed
     "istft": {torch.float32: (1e-5, 1e-5)},
 }
+# Rows 4-5 in bf16 with the cotangent live past the length: there p can be
+# 1 (a query chunk with no valid key, or a length of 1) while g is not 0, so
+# dS = p (g v^T - delta) reaches |dS| ~ 8 on random data, where the
+# decoder's case (g zeroed there) keeps |dS| << 1.  The kernel and the plain
+# version each round dS (and, for dv, p) to bf16, from fp32 values that
+# differ in the last bits (the products summed in another order, exp2 for
+# exp), so a value within that difference of a bf16 rounding boundary can
+# land one bf16 step (at most 2^-7 of it) apart and move an output by that
+# step times |x| (x = k for dq, q for dk, g for dv; times D^-0.5 for dq and
+# dk).  That case is held to TOL plus the sum of those moves over the
+# values that can round apart: those within DP_ERR * (p sum_d |g v| +
+# |dS| D^-0.5 sum_d |q k|) + 2^-19 |dS| of a boundary (dP and s summed in
+# another order: the fp32 bound of a 64-term sum, 64 * 2^-24, four times
+# over for the tensor cores' accumulation; exp2 against exp), from the
+# plain version's own values.  The decoder's case is held to TOL alone.
+BF16_STEP = 2.0 ** -7
+DP_ERR = 2.0 ** -16
+EXP_ERR = 2.0 ** -19
 # The untrained duration head predicts log-durations near 0, which round to
 # 0 frames: every utterance would be empty.  Its bias is set so that the
 # 256 phonemes fill most of the 1024-frame bucket, as trained weights do.
@@ -341,6 +364,26 @@ def check_close(name: str, label: str, dtype, out, ref) -> float:
     return err
 
 
+def check_close_slack(name: str, label: str, dtype, out, ref,
+                      slack) -> float:
+    """``check_close`` with a per-element ``slack`` added to the bound;
+    returns the max abs error."""
+    atol, rtol = TOL[name][dtype]
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    excess = (diff - rtol * ref.float().abs() - slack).max().item()
+    print(f"  {name:15s} {str(dtype)[6:]:8s} {label:8s} max_abs_err "
+          f"{err:.3e} (tol {atol:.0e} + {rtol:.0e}*|plain| + slack, max "
+          f"|plain| {ref.float().abs().max().item():.3f}, max slack "
+          f"{slack.max().item():.3e}, excess over the TOL bound alone "
+          f"{(diff - rtol * ref.float().abs()).max().item() - atol:.3e})")
+    if not excess <= atol:
+        raise AssertionError(f"{name} {dtype} {label}: max_abs_err {err}, "
+                             f"exceeds atol {atol} + rtol {rtol}*|plain| + "
+                             f"slack by {excess - atol}")
+    return err
+
+
 def bound_ms(n_bytes: float, flops: float, flop_rate: float):
     """Least time for the work: bytes over HBM rate vs operations over peak."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -371,8 +414,9 @@ def phase_device() -> str:
 def phase_build() -> build.KernelLibrary:
     """Build the library and print each kernel's ``-Xptxas -v`` lines (entry,
     registers, spills); for the bf16 forwards of rows 1 and 2
-    (``attention_fwd_sm90.cuh``) and row 10's bf16 kernel, their dynamic
-    shared memory a block and blocks per SM from the occupancy API."""
+    (``attention_fwd_sm90.cuh``), the bf16 backward of rows 4 and 5 and row
+    10's bf16 kernel, their dynamic shared memory a block and blocks per SM
+    from the occupancy API."""
     lib = build.library()
     print(f"built {lib.path.name} in {lib.build_seconds:.1f} s "
           f"({len(build.sources())} sources and {len(build.headers())} "
@@ -388,7 +432,11 @@ def phase_build() -> build.KernelLibrary:
             ("attn_fwd_sm90_kernel row 2 bf16 at Tk 256",
              lib.lib.full_attention_fwd_occupancy, (256,)),
             ("conv_transpose_sm90_kernel row 10 bf16",
-             lib.lib.conv_transpose_fwd_occupancy, ())):
+             lib.lib.conv_transpose_fwd_occupancy, ()),
+            ("dq_sm90_kernel row 4 bf16",
+             lib.lib.local_attention_bwd_occupancy, (0,)),
+            ("dkv_sm90_kernel row 5 bf16",
+             lib.lib.local_attention_bwd_occupancy, (1,))):
         build.check(fn(*args, ctypes.byref(blocks), ctypes.byref(smem)),
                     label)
         print(f"  {label}: {smem.value} bytes of dynamic shared memory a "
@@ -1022,12 +1070,14 @@ def check_conv_transpose(card: str) -> dict:
 # phase 3, training kernels: rows 3-5 and 7
 # ---------------------------------------------------------------------------
 
-def _attention_train_inputs(B, T, dtype, g, chunk):
+def _attention_train_inputs(B, T, dtype, g, chunk, *,
+                           zero_masked_rows: bool = True):
     """q/k/v as views of one fused projection; key lengths that mask part
     of the last chunks: length T - 2c leaves the last chunk's queries with
     no valid key (all of them at T 2c) and length 0 every chunk's; the
     output's cotangent, zeroed on the query rows past the length as the
-    decoder's mask zeroes it."""
+    decoder's mask zeroes it (or not: the rows-4/5 paths of the chunks with
+    no valid key, p = 1, then see nonzero data)."""
     H, D = 8, 64
     qkv = torch.randn(B, T, 3 * H * D, generator=g, device="cuda").to(dtype)
     q, k, v = (t.reshape(B, T, H, D) for t in qkv.split(H * D, dim=-1))
@@ -1036,8 +1086,34 @@ def _attention_train_inputs(B, T, dtype, g, chunk):
     lengths[:4] = torch.tensor([T, T - 1, T - 2 * chunk, 0], device="cuda")
     lengths = lengths.to(torch.int32)
     gout = torch.randn(B, T, H, D, generator=g, device="cuda")
-    gout = (gout * length_mask(lengths, T)[..., None, None]).to(dtype)
-    return q, k, v, gout, lengths
+    if zero_masked_rows:
+        gout = gout * length_mask(lengths, T)[..., None, None]
+    return q, k, v, gout.to(dtype), lengths
+
+
+def _bwd_walk_pairs(lengths, T: int, chunk: int) -> dict:
+    """How many (64-row tile, 64-row tile) pairs of each kind the bf16
+    kernels of rows 4 and 5 meet on these lengths, per head: row 4's
+    (query tile, key tile of its window) walked "full" (a chunk with a
+    valid key), "ones" (one without) or skipped; row 5's (key tile, query
+    tile of chunks j-1..j+1) walked "full", "ones" or skipped
+    (``la_kernel.valid_key_tiles``, ``la_kernel.bwd_dkv_query_tiles``)."""
+    W, per_chunk = min(3 * chunk, T), chunk // 64
+    dq = {"full": 0, "ones": 0, "skipped": 0}
+    dkv = dict(dq)
+    for L in lengths:
+        for ci in range(T // chunk):
+            _, n_tiles, has_key = la_kernel.valid_key_tiles(ci, T, chunk, L)
+            dq["full" if has_key else "ones"] += per_chunk * n_tiles
+            dq["skipped"] += per_chunk * (W // 64 - n_tiles)
+        for k0 in range(0, T, 64):
+            j = k0 // chunk
+            band = per_chunk * (min(j + 2, T // chunk) - max(j - 1, 0))
+            walk = la_kernel.bwd_dkv_query_tiles(k0, T, chunk, L)
+            for _, mode in walk:
+                dkv[mode] += 1
+            dkv["skipped"] += band - len(walk)
+    return {"local_attention_bwd_dq": dq, "local_attention_bwd_dkv": dkv}
 
 
 def _no_valid_key_chunks(lengths, T: int, chunk: int):
@@ -1079,38 +1155,105 @@ def _sdpa_mask(lengths, T, chunk):
     return band[None, None] & length_mask(lengths, T)[:, None, None, :]
 
 
+def _flip_slack(x, err, y_abs, scale: float, eq: str):
+    """``scale`` * the sum over the entries of ``x`` (fp32 values rounded to
+    bf16 before a product) that lie within ``err`` of a bf16 rounding
+    boundary, of one bf16 step of them times ``y_abs`` (the note at
+    ``BF16_STEP``)."""
+    r = x.bfloat16().float()
+    _, e = torch.frexp(r)
+    half_step = torch.ldexp(torch.ones_like(r), e - 9)   # |r| = m 2^e
+    near = half_step - (x - r).abs() <= err
+    return scale * torch.einsum(eq, torch.where(near, BF16_STEP * x.abs(),
+                                                0.0), y_abs)
+
+
+def _bf16_rounding_slack(args, chunk: int) -> dict:
+    """Per output element of dq, dk and dv, what rounding dS and p to bf16
+    can move it by between the kernel and the plain version (the note at
+    ``BF16_STEP``), from the plain versions' p and dS."""
+    q, k, v, g = args[:4]
+    B, T, H, D = q.shape
+    n, scale = T // chunk, D ** -0.5
+    qc, gc, kc, vc = (x.reshape(B, n, chunk, H, D).float().abs()
+                      for x in (q, g, k, v))
+    p, ds, key = la_kernel._bwd_dq_terms(*args, chunk)
+    kw = k[:, key].float().abs()
+    s_abs = scale * torch.einsum("bnqhd,bnkhd->bnhqk", qc, kw)
+    err = DP_ERR * (p * torch.einsum("bnqhd,bnkhd->bnhqk", gc,
+                                     v[:, key].float().abs())
+                    + ds.abs() * s_abs) + EXP_ERR * ds.abs()
+    dq = _flip_slack(ds, err, kw, scale, "bnhqk,bnkhd->bnqhd")
+    del p, ds, kw, s_abs, err
+    p, ds, qidx = la_kernel._bwd_dkv_terms(*args, chunk)
+    qw, gw = q[:, qidx].float().abs(), g[:, qidx].float().abs()
+    s_abs = scale * torch.einsum("bnqhd,bnkhd->bnhqk", qw, kc)
+    err = DP_ERR * (p * torch.einsum("bnqhd,bnkhd->bnhqk", gw, vc)
+                    + ds.abs() * s_abs) + EXP_ERR * ds.abs()
+    dk = _flip_slack(ds, err, qw, scale, "bnhqk,bnqhd->bnkhd")
+    dv = _flip_slack(p, p * (DP_ERR * s_abs + EXP_ERR), gw, 1.0,
+                     "bnhqk,bnqhd->bnkhd")
+    return {"dq": dq.reshape(q.shape), "dk": dk.reshape(q.shape),
+            "dv": dv.reshape(q.shape)}
+
+
 def _check_attention_train_case(B, T, chunk, g, label) -> tuple[dict, dict]:
     """Rows 3, 4 and 5 against their plain versions, fp32 and bf16; times
     at bf16.  Returns (max abs errors, times) by kernel."""
     errs = {"local_attention_fwd_lse": 0.0, "local_attention_bwd_dq": 0.0,
             "local_attention_bwd_dkv": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
-        q, k, v, gout, lengths = _attention_train_inputs(B, T, dtype, g, chunk)
+        q, k, v, g_live, lengths = _attention_train_inputs(
+            B, T, dtype, g, chunk, zero_masked_rows=False)
         out, lse = la_kernel.local_attention_fwd_lse_cuda(q, k, v, lengths,
                                                           chunk=chunk)
         ref_out, ref_lse = la_kernel.local_attention_fwd_lse_plain(
             q, k, v, lengths, chunk=chunk)
         _check_no_valid_key(out, lse, v, lengths.cpu(), chunk,
                             f"{label} {str(dtype)[6:]}")
-        delta = (gout.float() * out.float()).sum(-1).transpose(1, 2) \
-            .contiguous()
-        args = (q, k, v, gout, lse, delta, lengths)
-        dq = la_kernel.local_attention_bwd_dq_cuda(*args, chunk=chunk)
-        dk, dv = la_kernel.local_attention_bwd_dkv_cuda(*args, chunk=chunk)
-        ref_dq = la_kernel.local_attention_bwd_dq_plain(*args, chunk=chunk)
-        ref_dk, ref_dv = la_kernel.local_attention_bwd_dkv_plain(*args,
-                                                                 chunk=chunk)
-        torch.cuda.synchronize()
-        for name, pairs in (
-                ("local_attention_fwd_lse", (("out", out, ref_out),
-                                             ("lse", lse, ref_lse))),
-                ("local_attention_bwd_dq", (("dq", dq, ref_dq),)),
-                ("local_attention_bwd_dkv", (("dk", dk, ref_dk),
-                                             ("dv", dv, ref_dv)))):
-            for what, o, r in pairs:
-                errs[name] = max(errs[name], check_close(
-                    name, f"{label} {what}", dtype, o, r))
-        del ref_out, ref_lse, ref_dq, ref_dk, ref_dv
+        for what, o, r in (("out", out, ref_out), ("lse", lse, ref_lse)):
+            errs["local_attention_fwd_lse"] = max(
+                errs["local_attention_fwd_lse"], check_close(
+                    "local_attention_fwd_lse", f"{label} {what}", dtype, o, r))
+        # the cotangent live past the length, then zeroed there (the
+        # decoder's; the timed inputs)
+        for g_label, gout in (
+                ("g live", g_live),
+                ("g zeroed",
+                 g_live * length_mask(lengths, T)[..., None, None])):
+            delta = (gout.float() * out.float()).sum(-1).transpose(1, 2) \
+                .contiguous()
+            args = (q, k, v, gout, lse, delta, lengths)
+            dq = la_kernel.local_attention_bwd_dq_cuda(*args, chunk=chunk)
+            dk, dv = la_kernel.local_attention_bwd_dkv_cuda(*args,
+                                                            chunk=chunk)
+            ref_dq = la_kernel.local_attention_bwd_dq_plain(*args,
+                                                            chunk=chunk)
+            ref_dk, ref_dv = la_kernel.local_attention_bwd_dkv_plain(
+                *args, chunk=chunk)
+            torch.cuda.synchronize()
+            slack = (_bf16_rounding_slack(args, chunk)
+                     if dtype == torch.bfloat16 and g_label == "g live"
+                     else None)
+            for name, pairs in (
+                    ("local_attention_bwd_dq", (("dq", dq, ref_dq),)),
+                    ("local_attention_bwd_dkv", (("dk", dk, ref_dk),
+                                                 ("dv", dv, ref_dv)))):
+                for what, o, r in pairs:
+                    tag = f"{label} {g_label} {what}"
+                    errs[name] = max(errs[name], check_close(
+                        name, tag, dtype, o, r) if slack is None else
+                        check_close_slack(name, tag, dtype, o, r,
+                                          slack[what]))
+            del slack, ref_dq, ref_dk, ref_dv
+        del ref_out, ref_lse
+    pairs = _bwd_walk_pairs(lengths.tolist(), T, chunk)
+    for name, kinds in pairs.items():
+        print(f"  {name} {label}: (tile, tile) pairs a head of the bf16 "
+              f"walk: {kinds}")
+        if not all(kinds.values()):
+            raise AssertionError(f"{name} {label}: the inputs leave a kind "
+                                 f"of pair unexercised: {kinds}")
     fwd = lambda: la_kernel.local_attention_fwd_lse_cuda(  # noqa: E731
         q, k, v, lengths, chunk=chunk)
     dq_fn = lambda: la_kernel.local_attention_bwd_dq_cuda(  # noqa: E731
@@ -1151,6 +1294,14 @@ def _check_attention_train_case(B, T, chunk, g, label) -> tuple[dict, dict]:
               f" {lib:.4f} ms, bound {bms:.4f} ms ({by})")
         times[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
                        "bound_by": by, "library_ms": lib}
+    # delta, the PyTorch reduction that LocalAttention.backward runs before
+    # rows 4 and 5 (not a kernel of the port): its device time beside theirs
+    delta_ms = cuda_ms(lambda: (gout.float() * out.float()).sum(-1)
+                       .transpose(1, 2).contiguous())
+    delta_bound, _ = bound_ms(2 * 2 * gout.numel() + 4 * B * 8 * T, 0, 1)
+    print(f"  delta = sum_d g * out (PyTorch) bf16 {label} B{B} T{T} H8 D64: "
+          f"{delta_ms:.4f} ms, bound {delta_bound:.4f} ms (bytes: g and out "
+          f"read, delta written)")
     return errs, times
 
 
@@ -1556,6 +1707,26 @@ def phase_main_path(card: str) -> dict:
                                 ref_out.durations))
     print(f"  mel MAE bf16 card vs fp32 CPU plain path, batch 1: {mae:.5f} "
           f"(durations equal: {same_dur})")
+    # What moves that MAE, duration flips or the kernels' bf16 drift: the
+    # bf16 card program again with the fp32 CPU durations fed in, first
+    # with its own sampled style, then with the fp32 CPU style too.
+    # Reported, not gated.
+    same = {"card bf16 style": style_latent(
+        cfg, params, tuple(x.cuda() for x in inputs1), device="cuda",
+        one_step=True, quantized=True)}
+    same["CPU fp32 style"] = style_latent(cfg32, params, inputs1,
+                                          device="cpu", one_step=True,
+                                          quantized=True)
+    style_diff = (same["card bf16 style"].float().cpu()
+                  - same["CPU fp32 style"]).abs().max().item()
+    for label, style in same.items():
+        out_d, _ = run_with_durations(
+            cfg, params, inputs1[0], inputs1[1], style, ref_out.durations,
+            m.max_frames, device="cuda")
+        print(f"  mel MAE bf16 card vs fp32 CPU plain path, batch 1, the "
+              f"CPU durations fed in, {label}: {mel_mae(out_d, ref_out):.5f} "
+              f"(quantised styles differ by {style_diff:.3e} at most)")
+    check_no_plain_on_card("1-step bf16 card path with fed durations")
     return {"counts": {k: res[1]["counts"][k] + res[32]["counts"][k]
                        for k in res[1]["counts"]},
             "n_calls": len(res[1]["times"]) + len(res[32]["times"]), "fn": fn,
@@ -1575,9 +1746,12 @@ def with_denoiser_gates(params, seed: int = 0):
     return {**params, "diffusion": diff}
 
 
-def style_latent(cfg: Config, params, inputs, *, device, n_steps, guidance):
-    """The multi-step sampler's (B, K, d_style) style before quantisation,
-    on the same path as ``make_synthesis_fn(one_step=False)``."""
+def style_latent(cfg: Config, params, inputs, *, device, n_steps=None,
+                 guidance=None, one_step: bool = False,
+                 quantized: bool = False):
+    """The sampler's (B, K, d_style) style, before quantisation (or after,
+    as the synthesis path hands it on), on the same path as
+    ``make_synthesis_fn(one_step=...)``."""
     mods = build_models(cfg, params, device=device)
     phonemes, text_lengths, ref_mel, ref_lengths, noise = inputs
     with torch.inference_mode():
@@ -1585,9 +1759,15 @@ def style_latent(cfg: Config, params, inputs, *, device, n_steps, guidance):
         tokens, summary = mods.acoustic.encode_prompt(
             ref_mel, length_mask(ref_lengths, ref_mel.shape[1]))
         text_enc, _ = mods.acoustic.encode_text(phonemes, text_mask)
-        return mods.diffusion.sample(noise, text_enc, tokens, summary,
-                                     text_mask=text_mask, n_steps=n_steps,
-                                     guidance=guidance)
+        if one_step:
+            style = mods.diffusion.sample_onestep(
+                noise, text_enc, tokens, summary, text_mask=text_mask,
+                guidance=guidance)
+        else:
+            style = mods.diffusion.sample(noise, text_enc, tokens, summary,
+                                          text_mask=text_mask,
+                                          n_steps=n_steps, guidance=guidance)
+        return mods.acoustic.quantize_style(style) if quantized else style
 
 
 def multistep_config() -> Config:
@@ -2313,6 +2493,35 @@ def _launch_local_lse(lib, q, k, v, lengths, chunk: int):
     return out, lse
 
 
+def _bwd_args(q, k, v, g, lse, delta, lengths):
+    """The pointers and strides the two backward entry points share."""
+    B, T, H, D = q.shape
+    return ([x.data_ptr() for x in (q, k, v, g, lse, delta, lengths)],
+            [B, T, H, D], [st for x in (q, k, v, g) for st in x.stride()[:3]])
+
+
+def _launch_bwd_dq(lib, q, k, v, g, lse, delta, lengths, chunk: int):
+    """``local_attention_bwd_dq`` of ``lib`` (row 4) on bf16 CUDA tensors."""
+    ptrs, shape, strides = _bwd_args(q, k, v, g, lse, delta, lengths)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    build.check(lib.local_attention_bwd_dq(
+        1, *ptrs, dq.data_ptr(), *shape, chunk, *strides, q.shape[-1] ** -0.5,
+        torch.cuda.current_stream().cuda_stream), "local_attention_bwd_dq")
+    return dq
+
+
+def _launch_bwd_dkv(lib, q, k, v, g, lse, delta, lengths, chunk: int):
+    """``local_attention_bwd_dkv`` of ``lib`` (row 5): (dk, dv)."""
+    ptrs, shape, strides = _bwd_args(q, k, v, g, lse, delta, lengths)
+    dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    build.check(lib.local_attention_bwd_dkv(
+        1, *ptrs, dk.data_ptr(), dv.data_ptr(), *shape, chunk, *strides,
+        q.shape[-1] ** -0.5, torch.cuda.current_stream().cuda_stream),
+        "local_attention_bwd_dkv")
+    return dk, dv
+
+
 def _launch_convt(lib, x, w, stride: int = 5) -> torch.Tensor:
     """``conv_transpose_fwd`` of ``lib`` (row 10) on a bf16 CUDA x, with
     the vocoder's leaky ReLU."""
@@ -2326,23 +2535,54 @@ def _launch_convt(lib, x, w, stride: int = 5) -> torch.Tensor:
     return out.transpose(1, 2)
 
 
+def _kernel_name(mangled: str) -> str:
+    """The kernel's name and its template's policy from a mangled entry
+    name (each identifier is prefixed by its length)."""
+    names, i = [], 0
+    while i < len(mangled):
+        j = i
+        while j < len(mangled) and mangled[j].isdigit():
+            j += 1
+        if j == i:
+            i += 1
+            continue
+        n = int(mangled[i:j])
+        names.append(mangled[j:j + n])
+        i = j + n
+    keep = [x for x in names if x.endswith(("_kernel", "Policy"))]
+    return " ".join(keep) or mangled[:70]
+
+
 def _print_resources(who: str, lib: build.KernelLibrary) -> None:
     """Registers, spills and static shared memory of the bf16 kernels of
-    rows 1-3 and 10 from a library's ``-Xptxas -v`` log."""
+    rows 1-5 and 10 from a library's ``-Xptxas -v`` log; blocks per SM of
+    the backward kernels (rows 4, 5) where the library reports them."""
     entry = ""
     for line in lib.log.splitlines():
         if "Compiling entry" in line:
-            entry = line
-        if any(k in entry for k in ("attn_fwd", "conv_transpose")) and (
+            entry = _kernel_name(line.split()[-3].strip("'"))
+        if any(k in entry for k in ("attn_fwd", "conv_transpose", "dq_tc",
+                                    "dkv_tc", "dq_sm90", "dkv_sm90")) and (
                 "Used" in line or "spill" in line):
-            print(f"    {who} {entry.split()[-3][:70]}: {line.strip()}")
+            print(f"    {who} {entry}: {line.strip()}")
+    occupancy = getattr(lib.lib, "local_attention_bwd_occupancy", None)
+    if occupancy is None:
+        print(f"    {who}: rows 4-5 blocks per SM not reported by that "
+              f"library")
+        return
+    blocks, smem = ctypes.c_int(), ctypes.c_int()
+    for row, dkv in ((4, 0), (5, 1)):
+        build.check(occupancy(dkv, ctypes.byref(blocks), ctypes.byref(smem)),
+                    "local_attention_bwd_occupancy")
+        print(f"    {who} row {row} bf16: {smem.value} bytes of dynamic "
+              f"shared memory a block, {blocks.value} blocks per SM")
 
 
 def phase_against_parent(parent: str, card: str) -> dict:
-    """Rows 1, 2, 3 and 10 in bf16 at every shape the paths launch them:
-    this tree's kernels against those of the tree unpacked at ``parent``,
-    both held against the plain version, then timed in turns (parent, this,
-    this, parent) on the same inputs."""
+    """Rows 1, 2, 3, 4, 5 and 10 in bf16 at every shape the paths launch
+    them: this tree's kernels against those of the tree unpacked at
+    ``parent``, both held against the plain version, then timed in turns
+    (parent, this, this, parent) on the same inputs."""
     old = _parent_library(Path(parent).resolve())
     new = build.library()
     print(f"  parent library {old.path} (built in {old.build_seconds:.1f} "
@@ -2382,6 +2622,20 @@ def phase_against_parent(parent: str, card: str) -> dict:
                       (q, k, v, lengths, chunk),
                       la_kernel.local_attention_fwd_lse_plain(
                           q, k, v, lengths, chunk=chunk)))
+    for T in (1024, 2 * chunk):
+        q, k, v, gout, lengths = _attention_train_inputs(16, T, torch.bfloat16,
+                                                         g, chunk)
+        out, lse = la_kernel.local_attention_fwd_lse_cuda(q, k, v, lengths,
+                                                          chunk=chunk)
+        delta = (gout.float() * out.float()).sum(-1).transpose(1, 2) \
+            .contiguous()
+        args = (q, k, v, gout, lse, delta, lengths)
+        cases.append((f"row 4 B16 T{T} c{chunk} masked", _launch_bwd_dq,
+                      (*args, chunk), la_kernel.local_attention_bwd_dq_plain(
+                          *args, chunk=chunk)))
+        cases.append((f"row 5 B16 T{T} c{chunk} masked", _launch_bwd_dkv,
+                      (*args, chunk), la_kernel.local_attention_bwd_dkv_plain(
+                          *args, chunk=chunk)))
     for label, (B, T, C_in, C_out) in _CONVT_CASES.items():
         x, w = _convt_inputs(B, T, C_in, C_out, torch.bfloat16, g)
         cases.append((f"row 10 {label} ({B}, {T}, {C_in}) -> {C_out}",
@@ -2390,18 +2644,21 @@ def phase_against_parent(parent: str, card: str) -> dict:
                                                        negative_slope=0.1)))
     names = {_launch_local: "local_attention", _launch_full: "full_attention",
              _launch_local_lse: "local_attention_fwd_lse",
+             _launch_bwd_dq: "local_attention_bwd_dq",
+             _launch_bwd_dkv: "local_attention_bwd_dkv",
              _launch_convt: "conv_transpose"}
+    parts = {_launch_local_lse: ("out", "lse"), _launch_bwd_dkv: ("dk", "dv")}
     res = {}
     for label, launch, args, ref in cases:
         fns = [lambda lib=lib: launch(lib.lib, *args) for lib in (old, new)]
         name = names[launch]
         for who, fn in zip(("parent", "this"), fns):
-            got, want = fn(), ref
-            if isinstance(got, tuple):                 # row 3: (out, lse)
-                check_close(name, f"{who} lse", torch.bfloat16, got[1],
-                            want[1])
-                got, want = got[0], want[0]
-            check_close(name, who, torch.bfloat16, got, want)
+            got = fn()
+            if launch not in parts:
+                check_close(name, who, torch.bfloat16, got, ref)
+                continue
+            for part, o, r in zip(parts[launch], got, ref):
+                check_close(name, f"{who} {part}", torch.bfloat16, o, r)
         t, host = zip(*(timed(fns[i], iters=20) for i in (0, 1, 1, 0)))
         speedup = (t[0] + t[3]) / (t[1] + t[2])
         print(f"  {label}: parent {t[0]:.4f} / {t[3]:.4f} ms, this "
@@ -2504,7 +2761,7 @@ def phase_profile(fn, inputs, card: str, label: str) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", metavar="DIR",
-                    help="only time rows 1, 2, 3 and 10 (bf16) against the "
+                    help="only time rows 1-5 and 10 (bf16) against the "
                          "kernels of the tree unpacked at DIR, in turns")
     ap.add_argument("--paths-against", metavar="DIR",
                     help="only run the 1-step, long-form and train-step "

@@ -90,15 +90,6 @@ constexpr float kLn2 = 0.6931471805599453f;
 
 using namespace sm90;
 
-// A 64 x 64 box at (d 0, t, h, b) of a (D, T, H, B) tensor map into shared
-// memory at dst, completing on bar.  Rows past T arrive as zeros.
-__device__ __forceinline__ void tma_load_tile(uint32_t dst,
-                                              const CUtensorMap* map,
-                                              uint32_t bar, int t, int h,
-                                              int b) {
-  tma_load_4d(dst, map, bar, 0, t, h, b);
-}
-
 // One stage of the ring: the K (unless the block needs no scores) and V
 // tiles of keys [key0, key0 + 64).
 __device__ __forceinline__ void load_kv(uint32_t sk, uint32_t sv, uint32_t bar,
@@ -108,63 +99,6 @@ __device__ __forceinline__ void load_kv(uint32_t sk, uint32_t sv, uint32_t bar,
   mbar_expect_tx(bar, with_k ? kStageBytes : kTileBytes);
   if (with_k) tma_load_tile(sk, mk, bar, key0, h, b);
   tma_load_tile(sv, mv, bar, key0, h, b);
-}
-
-// wgmma descriptor of a 128-byte-swizzled tile of 64-element rows.
-__device__ __forceinline__ uint64_t desc128(uint32_t addr) {
-  return smem_desc(addr, 1024, 1);
-}
-
-#define ATTN_SM90_D32                                                         \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "   \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "    \
-  "%30, %31}"
-#define ATTN_SM90_D32_OPS(d)                                                  \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),     \
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),            \
-      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),        \
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),        \
-      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),        \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),        \
-      "+f"(d[31])
-
-// d (+)= A B, m64n64k16, A and B K-major in shared memory.
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " ATTN_SM90_D32
-      ", %32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : ATTN_SM90_D32_OPS(d)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d += A B, m64n64k16, A from registers (four bf16x2 a thread), B MN-major
-// in shared memory.
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " ATTN_SM90_D32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : ATTN_SM90_D32_OPS(d)
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
-}
-
-#undef ATTN_SM90_D32
-#undef ATTN_SM90_D32_OPS
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // Bits [a, b) of a 64-bit word, a and b clipped to [0, 64].
@@ -491,25 +425,6 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 // ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
-
-// A (D, T, H, B) bf16 tensor map of a (B, T, H, D) view with element strides
-// st[0..2] = (b, t, h), read in 64 x 64 boxes with 128-byte swizzle.  A
-// dimension of extent 1 gets its contiguous stride (its own is never used).
-bool encode_view(CUtensorMap* map, const void* ptr, int B, int T, int H,
-                 const long long* st) {
-  const long long sb = B > 1 ? st[0] : static_cast<long long>(T) * H * kD;
-  const long long stt = T > 1 ? st[1] : static_cast<long long>(H) * kD;
-  const long long sh = H > 1 ? st[2] : kD;
-  const cuuint64_t dims[4] = {kD, static_cast<cuuint64_t>(T),
-                              static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(stt) * 2,
-                                 static_cast<cuuint64_t>(sh) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {kD, kTile, 1, 1};
-  return encode_bf16(map, ptr, 4, dims, strides, box,
-                     CU_TENSOR_MAP_SWIZZLE_128B);
-}
 
 // Launch on `stream`: q (B, Tq, H, 64), k/v (B, Tk, H, 64) bf16 views with
 // element strides (b, t, h), 16-byte aligned; out contiguous (B, Tq, H, 64);

@@ -25,7 +25,9 @@ query chunk's window, dk and dv over the query chunks j-1..j+1 of each key
 chunk j, where only the length masks a key.  A query with no valid key has
 lse = -1e30, so its p is 1 on every masked key (the Pallas function; its
 cotangent is zero in the decoder).  p and dS are rounded to the input dtype
-before their products, as in the Pallas kernels.
+before their products, as in the Pallas kernels.  The bf16 kernels walk
+only the tiles whose pairs can add anything: ``valid_key_tiles`` (rows 1,
+3 and 4) and ``bwd_dkv_query_tiles`` (row 5) state which.
 """
 from __future__ import annotations
 
@@ -43,23 +45,28 @@ bwd_dkv_launches = 0   # row 5, ``local_attention_bwd_dkv_cuda``
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _check_tiling(T: int, chunk: int, tile: int) -> None:
+    if chunk % tile or T % chunk or T < 2 * chunk:
+        raise ValueError(f"the kernel takes chunk % {tile} == 0 and T a "
+                         f"multiple of chunk, >= 2 chunks; got chunk={chunk} "
+                         f"T={T}")
+
+
 def valid_key_tiles(ci: int, T: int, chunk: int, length: int,
                     tile: int = 64) -> tuple[int, int, bool]:
-    """The key tiles row 1's bf16 kernel walks for the queries of chunk
-    ``ci``: (first key, number of tiles of ``tile`` keys, whether the chunk
-    has a valid key).
+    """The key tiles the bf16 kernels of rows 1, 3 and 4 walk for the
+    queries of chunk ``ci``: (first key, number of tiles of ``tile`` keys,
+    whether the chunk has a valid key).
 
     With a valid key, the tiles of [max(s0, band_lo), min(s0 + W, band_hi,
     length)): every key outside them is masked for every query of the chunk,
     so its probability is exactly 0 and skipping it is exact.  With none,
     every tile of the clipped window [s0, s0 + W), all at equal weight (the
-    kernel then needs no scores: P.V alone).  The kernel takes chunks that
-    are multiples of the tile, so both ranges start and end on tile
-    boundaries inside the window."""
-    if chunk % tile or T % chunk or T < 2 * chunk:
-        raise ValueError(f"the kernel takes chunk % {tile} == 0 and T a "
-                         f"multiple of chunk, >= 2 chunks; got chunk={chunk} "
-                         f"T={T}")
+    forward then needs no scores: P.V alone; row 4 takes p = exp(-1e30 -
+    lse) = 1 on every key).  The kernel takes chunks that are multiples of
+    the tile, so both ranges start and end on tile boundaries inside the
+    window."""
+    _check_tiling(T, chunk, tile)
     W = min(3 * chunk, T)
     s0 = max(0, min((ci - 1) * chunk, T - W))
     lo = max(s0, (ci - 1) * chunk)
@@ -67,6 +74,35 @@ def valid_key_tiles(ci: int, T: int, chunk: int, length: int,
     if hi > lo:
         return lo, -(-(hi - lo) // tile), True
     return s0, W // tile, False
+
+
+def bwd_dkv_query_tiles(k0: int, T: int, chunk: int, length: int,
+                        tile: int = 64) -> list[tuple[int, str]]:
+    """The query tiles row 5's bf16 kernel walks for the key tile of
+    ``tile`` keys at ``k0``: (first query, mode) for each.
+
+    The key tile lies in key chunk j; the kernel takes the query chunks
+    j-1..j+1 inside [0, n), as the Pallas kernel does, and of each:
+      - a chunk with a valid key (``valid_key_tiles``): every tile, "full"
+        (scores, then p = exp(s - lse) with the keys past the length at
+        -1e30), unless the key tile lies wholly at or past the length: then
+        p = exp(-1e30 - lse) = 0 on every pair and the chunk is skipped;
+      - a chunk without one (lse = -1e30 on its queries, and every key of
+        the tile past the length): every tile, "ones" (p = exp(-1e30 - lse)
+        = 1 on every pair, no scores needed).
+    A key tile with no pair left has dk = dv = 0."""
+    _check_tiling(T, chunk, tile)
+    if k0 % tile or not 0 <= k0 < T:
+        raise ValueError(f"k0={k0} is not the start of a key tile of T={T}")
+    j = k0 // chunk
+    walk = []
+    for i in range(max(j - 1, 0), min(j + 2, T // chunk)):
+        has_key = valid_key_tiles(i, T, chunk, length, tile)[2]
+        if has_key and k0 >= length:
+            continue
+        walk += [(i * chunk + t, "full" if has_key else "ones")
+                 for t in range(0, chunk, tile)]
+    return walk
 
 
 def _window(q, k, lengths, chunk: int):
@@ -121,27 +157,33 @@ def _per_chunk(stat, n: int):
     return stat.reshape(B, H, n, T // n).permute(0, 2, 1, 3)[..., None]
 
 
-def local_attention_bwd_dq_plain(q, k, v, g, lse, delta, lengths, *,
-                                 chunk: int) -> torch.Tensor:
-    """Plain PyTorch version of row 4: dq over each query chunk's window."""
-    plain.note("local_attention_bwd_dq", q)
+def _bwd_dq_terms(q, k, v, g, lse, delta, lengths, chunk: int):
+    """Row 4's p and dS (B, n, H, c, W), fp32, over each query chunk's
+    clipped window, and the window key indices (n, W)."""
     B, T, H, D = q.shape
     logits, key = _window(q, k, lengths, chunk)
     n = logits.shape[1]
     p = torch.exp(logits - _per_chunk(lse, n))
     dp = torch.einsum("bnqhd,bnkhd->bnhqk",
                       g.reshape(B, n, T // n, H, D).float(), v[:, key].float())
-    ds = p * (dp - _per_chunk(delta, n))
+    return p, p * (dp - _per_chunk(delta, n)), key
+
+
+def local_attention_bwd_dq_plain(q, k, v, g, lse, delta, lengths, *,
+                                 chunk: int) -> torch.Tensor:
+    """Plain PyTorch version of row 4: dq over each query chunk's window."""
+    plain.note("local_attention_bwd_dq", q)
+    B, T, H, D = q.shape
+    _, ds, key = _bwd_dq_terms(q, k, v, g, lse, delta, lengths, chunk)
     dq = torch.einsum("bnhqk,bnkhd->bnqhd", ds.to(q.dtype).float(),
                       k[:, key].float()) * D ** -0.5
     return dq.reshape(B, T, H, D).to(q.dtype)
 
 
-def local_attention_bwd_dkv_plain(q, k, v, g, lse, delta, lengths, *,
-                                  chunk: int):
-    """Plain PyTorch version of row 5: (dk, dv), each key chunk j over the
-    query chunks j-1..j+1 inside [0, n), keys masked by the length only."""
-    plain.note("local_attention_bwd_dkv", q)
+def _bwd_dkv_terms(q, k, v, g, lse, delta, lengths, chunk: int):
+    """Row 5's p and dS (B, n, H, 3c, c), fp32: key chunk j against its
+    query chunks j-1..j+1 (zero where that chunk lies outside [0, n)), and
+    the query indices (n, 3c) (clipped into [0, T))."""
     B, T, H, D = q.shape
     if T < 2 * chunk or T % chunk:
         raise ValueError(f"the backward takes T a multiple of chunk and at "
@@ -164,6 +206,17 @@ def local_attention_bwd_dkv_plain(q, k, v, g, lse, delta, lengths, *,
     w = ok[None, :, None, :, None].float()
     p = torch.exp(s - lse_w) * w
     ds = p * (torch.einsum("bnqhd,bnkhd->bnhqk", gw, vj) - delta_w)
+    return p, ds, qidx
+
+
+def local_attention_bwd_dkv_plain(q, k, v, g, lse, delta, lengths, *,
+                                  chunk: int):
+    """Plain PyTorch version of row 5: (dk, dv), each key chunk j over the
+    query chunks j-1..j+1 inside [0, n), keys masked by the length only."""
+    plain.note("local_attention_bwd_dkv", q)
+    B, T, H, D = q.shape
+    p, ds, qidx = _bwd_dkv_terms(q, k, v, g, lse, delta, lengths, chunk)
+    qw, gw = q[:, qidx].float(), g[:, qidx].float()
     dk = torch.einsum("bnhqk,bnqhd->bnkhd", ds.to(q.dtype).float(),
                       qw) * D ** -0.5
     dv = torch.einsum("bnhqk,bnqhd->bnkhd", p.to(q.dtype).float(), gw)
@@ -244,11 +297,12 @@ def _check_bwd(q, k, v, g, lse, delta, lengths, chunk: int):
                 s.device != q.device or not s.is_contiguous():
             raise ValueError(f"{name}: need contiguous (B, H, T) fp32 on q's "
                              f"device")
-    if q.dtype == torch.bfloat16 and any(
+    if q.dtype == torch.bfloat16 and (any(
             t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])
-            for t in (q, k, v, g)):
+            for t in (q, k, v, g)) or lse.data_ptr() % 16 or
+            delta.data_ptr() % 16):
         raise ValueError("bf16 needs 16-byte aligned q/k/v/g with strides in "
-                         "multiples of 8")
+                         "multiples of 8, and 16-byte aligned lse and delta")
     return lengths
 
 

@@ -737,6 +737,166 @@ def test_local_attention_function_routes_and_matches_twin_grads(T):
         {k_: int(k_ == name) for k_ in before}
 
 
+# --- rows 4 and 5: the tiles the bf16 backward kernels walk -----------------
+
+# fp32: the walked tiles' sums against the plain version's over every key,
+# the same nonzero terms in another order: within 1e-5 of the largest value
+# (|dq| up to ~40 where p = 1 and g is live, sums of up to 3c terms that
+# cancel)
+BWD_SKIP_TOL = 1e-5
+
+
+def _close(got, want):
+    np.testing.assert_allclose(
+        n(got), n(want), rtol=0,
+        atol=BWD_SKIP_TOL * max(1.0, float(want.abs().max())))
+
+
+def _bwd_skip_inputs(T_, length, zero_masked_rows):
+    """(1, T, H 2, D 16) inputs with row 3's lse (-1e30 on the chunks with no
+    valid key) and delta = sum_d g * out; g zeroed past the length or not."""
+    q, k, v, g = (t(rnd(1, T_, SKIP_H, SKIP_D, seed=s))
+                  for s in (51, 52, 53, 54))
+    lengths = torch.tensor([length], dtype=torch.int32)
+    if zero_masked_rows:
+        g = g * (torch.arange(T_) < length)[None, :, None, None]
+    out, lse = la.local_attention_fwd_lse_plain(q, k, v, lengths,
+                                                chunk=SKIP_CHUNK)
+    delta = (g * out).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, g, lse, delta, lengths
+
+
+def _tile_terms(q_rows, k_rows, g_rows, v_rows, lse_q, delta_q, valid, ones):
+    """p and dS (H, queries, keys) of one tile pair, as the kernels form
+    them: scores masked to -1e30 before the exponent, or (``ones``) every
+    key at -1e30 with no scores."""
+    if ones:
+        s = torch.full((SKIP_H, len(q_rows), len(k_rows)), NEG_INF)
+    else:
+        s = torch.einsum("qhd,khd->hqk", q_rows, k_rows) * SKIP_D ** -0.5
+        s = s.masked_fill(~valid, NEG_INF)
+    p = torch.exp(s - lse_q[..., None])
+    dp = torch.einsum("qhd,khd->hqk", g_rows, v_rows)
+    return p, p * (dp - delta_q[..., None])
+
+
+@pytest.mark.parametrize("zero_masked_rows", [True, False])
+@pytest.mark.parametrize("T_", [2 * SKIP_CHUNK, 4 * SKIP_CHUNK])
+@pytest.mark.parametrize("length", [0, 1, SKIP_CHUNK, 700, None])
+def test_local_attention_bwd_dq_walks_only_tiles_that_count(
+        T_, length, zero_masked_rows):
+    """Row 4: for each query chunk, the key tiles ``valid_key_tiles`` names.
+    With a valid key, p and dS are exactly 0.0 in the plain version on every
+    key of the window outside them; without one, every tile of the window
+    is walked and p is exactly 1.0 on every key.  dq over the plan's tiles
+    alone, with p taken without scores where there is no valid key, matches
+    the plain version."""
+    length = T_ if length is None else length
+    q, k, v, g, lse, delta, lengths = _bwd_skip_inputs(T_, length,
+                                                       zero_masked_rows)
+    p, ds, key = la._bwd_dq_terms(q, k, v, g, lse, delta, lengths,
+                                  SKIP_CHUNK)               # (1, n, H, c, W)
+    ref = la.local_attention_bwd_dq_plain(q, k, v, g, lse, delta, lengths,
+                                          chunk=SKIP_CHUNK)
+    modes = set()
+    for ci in range(T_ // SKIP_CHUNK):
+        first, n_tiles, has_key = la.valid_key_tiles(ci, T_, SKIP_CHUNK,
+                                                     length)
+        walked = (key[ci] >= first) & (key[ci] < first + 64 * n_tiles)
+        if has_key:
+            modes.add("full")
+            assert torch.all(p[0, ci][..., ~walked] == 0.0)
+            assert torch.all(ds[0, ci][..., ~walked] == 0.0)
+        else:
+            modes.add("ones")
+            assert bool(walked.all()) and torch.all(p[0, ci] == 1.0)
+        rows = slice(ci * SKIP_CHUNK, (ci + 1) * SKIP_CHUNK)
+        keys = key[ci][walked]
+        band = (keys >= (ci - 1) * SKIP_CHUNK) & \
+            (keys < (ci + 2) * SKIP_CHUNK)
+        p_w, ds_w = _tile_terms(q[0, rows], k[0, keys], g[0, rows],
+                                v[0, keys], lse[0, :, rows], delta[0, :, rows],
+                                band & (keys < length), not has_key)
+        dq = torch.einsum("hqk,khd->qhd", ds_w, k[0, keys]) * SKIP_D ** -0.5
+        _close(dq, ref[0, rows])
+    assert modes == ({"ones"} if length == 0 else
+                     {"full", "ones"} if length <= T_ - 2 * SKIP_CHUNK
+                     else {"full"})
+
+
+@pytest.mark.parametrize("zero_masked_rows", [True, False])
+@pytest.mark.parametrize("T_", [2 * SKIP_CHUNK, 4 * SKIP_CHUNK])
+@pytest.mark.parametrize("length", [0, 1, SKIP_CHUNK, 700, None])
+def test_local_attention_bwd_dkv_walks_only_tiles_that_count(
+        T_, length, zero_masked_rows):
+    """Row 5: for each key tile, the query tiles ``bwd_dkv_query_tiles``
+    names, "full" or "ones".  Every (key tile, query tile) pair of chunks
+    j-1..j+1 that the plan skips has p and dS exactly 0.0 in the plain
+    version, every "ones" pair p exactly 1.0; a key tile's pairs are all of
+    one mode (the kernel's walk); dk and dv over the plan alone match the
+    plain version (exactly 0 where it walks nothing)."""
+    length = T_ if length is None else length
+    c, n_chunks = SKIP_CHUNK, T_ // SKIP_CHUNK
+    q, k, v, g, lse, delta, lengths = _bwd_skip_inputs(T_, length,
+                                                       zero_masked_rows)
+    p, ds, _ = la._bwd_dkv_terms(q, k, v, g, lse, delta, lengths,
+                                 c)                      # (1, n, H, 3c, c)
+    ref_dk, ref_dv = la.local_attention_bwd_dkv_plain(
+        q, k, v, g, lse, delta, lengths, chunk=c)
+    counts = {"full": 0, "ones": 0, "skipped": 0}
+    for k0 in range(0, T_, 64):
+        j = k0 // c
+        plan = dict(la.bwd_dkv_query_tiles(k0, T_, c, length))
+        assert len(set(plan.values())) <= 1
+        kk = slice(k0 - j * c, k0 - j * c + 64)
+        for slot in range(3):
+            i = j - 1 + slot
+            for t0 in range(0, c, 64):
+                pair_p = p[0, j, :, slot * c + t0:slot * c + t0 + 64, kk]
+                pair_ds = ds[0, j, :, slot * c + t0:slot * c + t0 + 64, kk]
+                mode = plan.get(i * c + t0) if 0 <= i < n_chunks else None
+                if mode is None:
+                    counts["skipped"] += 0 <= i < n_chunks
+                    assert torch.all(pair_p == 0.0)
+                    assert torch.all(pair_ds == 0.0)
+                    continue
+                counts[mode] += 1
+                if mode == "ones":
+                    assert torch.all(pair_p == 1.0)
+        keys = torch.arange(k0, k0 + 64)
+        dk = torch.zeros(64, SKIP_H, SKIP_D)
+        dv = torch.zeros(64, SKIP_H, SKIP_D)
+        for q0, mode in plan.items():
+            rows = slice(q0, q0 + 64)
+            p_w, ds_w = _tile_terms(q[0, rows], k[0, keys], g[0, rows],
+                                    v[0, keys], lse[0, :, rows],
+                                    delta[0, :, rows], keys < length,
+                                    mode == "ones")
+            dk += torch.einsum("hqk,qhd->khd", ds_w, q[0, rows]) \
+                * SKIP_D ** -0.5
+            dv += torch.einsum("hqk,qhd->khd", p_w, g[0, rows])
+        for got, want in ((dk, ref_dk), (dv, ref_dv)):
+            if not plan:
+                assert torch.all(want[0, keys] == 0.0)
+            _close(got, want[0, keys])
+    assert counts["full"] == 0 if length == 0 else counts["full"] > 0
+    assert counts["ones"] > 0 if length <= T_ - 2 * c else \
+        counts["ones"] == 0
+
+
+def test_bwd_dkv_query_tiles_refuse_what_the_kernel_cannot_take():
+    with pytest.raises(ValueError):
+        la.bwd_dkv_query_tiles(0, 96, 32, 96)      # chunk not a multiple of 64
+    with pytest.raises(ValueError):
+        la.bwd_dkv_query_tiles(0, 256, 256, 256)   # one chunk
+    with pytest.raises(ValueError):
+        la.bwd_dkv_query_tiles(0, 640, 256, 640)   # T not a multiple of c
+    with pytest.raises(ValueError):
+        la.bwd_dkv_query_tiles(32, 512, 256, 512)  # not a tile's first key
+    with pytest.raises(ValueError):
+        la.bwd_dkv_query_tiles(512, 512, 256, 512)  # past T
+
+
 # --- row 7: the AdaIN conv backward-data pass --------------------------------
 
 def _bwd_data_inputs(B=2, T=300, C=16, C_out=24, K=5, seed=30):
