@@ -9,16 +9,21 @@ Phases, one line each with its seconds:
   1. device     — requires CUDA; prints the card's name and power limit;
   2. build      — compiles ``styletts_zs_torch/csrc/*.cu``, one nvcc per
                   source, all started together (``-Xptxas -v`` register,
-                  shared-memory and spill lines printed; for the bf16
-                  forwards of rows 1 and 2, ``attention_fwd_sm90.cuh``,
-                  and row 10's bf16 kernel, their dynamic shared memory
-                  and blocks per SM);
+                  shared-memory and spill lines printed, and any wgmma
+                  serialisation ptxas reports; for the bf16 kernels built
+                  on ``sm90.cuh`` — rows 1 and 2 (``attention_fwd_sm90.cuh``),
+                  4, 5, 6, 10 and 12 — their dynamic shared memory and
+                  blocks per SM);
   3. kernels    — each hand-written kernel against its plain PyTorch
                   version at the main paths' shapes, fp32 and bf16, masked
                   and unmasked, with kernel / plain / library times from
                   CUDA events and the bound computed from the inputs; the
-                  AdaIN conv pass and the transposed conv at the long-form
-                  and the 1-step batch-32 shapes, chunk-local attention
+                  AdaIN conv pass at every shape a path launches it
+                  (long-form, the 1-step batch 32, serving's 512 and 256
+                  buckets, the train step's forward), the transposed conv
+                  and the synthesis head (through ``dispatch``, on the
+                  vocoder's (B, C, T)-major view) at the long-form and the
+                  1-step batch-32 shapes, chunk-local attention
                   also at 256 and 512 frames (the first through the
                   full-attention kernel), full attention in bf16 also at
                   Tk 272 with the denoiser's mask and Tq 50 and 16, and
@@ -82,19 +87,22 @@ phase 1.  It imports nothing of JAX.
 
     python3 chip_smoke.py --against build/parent
 
-runs phases 1 and 2 and then only times rows 1, 2, 3, 4, 5 and 10 in bf16,
-at every shape the paths launch them, against the kernels of another tree
-unpacked at that directory (``git archive <commit> | tar -x -C
-build/parent``; its ``kernels/build.py`` builds them into its own
-``build/``), each held against the plain version, in turns (parent, this,
-this, parent), after both trees' registers, spills and shared memory of
-those kernels.
+runs phases 1 and 2 and then only times every row (1-7, 10 and 12 in
+bf16; 8, 9 and 11 in fp32), at every shape the paths launch them,
+against the kernels of
+another tree unpacked at that directory (``git archive <commit> | tar -x
+-C build/parent``; its ``kernels/build.py`` builds them into its own
+``build/``), each through its own tree's C entry point and held against
+the plain version, in turns (parent, this, this, parent), after both
+trees' registers, spills, shared memory and blocks per SM of those
+kernels.
 
     python3 chip_smoke.py --paths-against build/parent
 
-runs phases 1 and 2 and then the 1-step, long-form and train-step phases
-(4, 5, 8, 9, 10 and 11) of that tree and of this one in turns, each in its
-own process from its own root.
+runs phases 1 and 2 and then the 1-step, long-form and serving phases
+(4, 5, 8, 9, 12 without its 4096-request, vocoder and parity runs, and 13)
+of that tree and of this one in turns, each in its own process from its
+own root.
 """
 from __future__ import annotations
 
@@ -414,16 +422,16 @@ def phase_device() -> str:
 def phase_build() -> build.KernelLibrary:
     """Build the library and print each kernel's ``-Xptxas -v`` lines (entry,
     registers, spills); for the bf16 forwards of rows 1 and 2
-    (``attention_fwd_sm90.cuh``), the bf16 backward of rows 4 and 5 and row
-    10's bf16 kernel, their dynamic shared memory a block and blocks per SM
-    from the occupancy API."""
+    (``attention_fwd_sm90.cuh``), the bf16 backward of rows 4 and 5 and the
+    bf16 kernels of rows 6, 10 and 12, their dynamic shared memory a block
+    and blocks per SM from the occupancy API."""
     lib = build.library()
     print(f"built {lib.path.name} in {lib.build_seconds:.1f} s "
           f"({len(build.sources())} sources and {len(build.headers())} "
           f"header, one nvcc per source, in parallel)")
     for line in lib.log.splitlines():
         if ("ptxas info" in line and ("Used" in line or "Compiling" in line)) \
-                or "spill stores" in line:
+                or "spill stores" in line or "Performance Loss" in line:
             print("  " + line.strip())
     blocks, smem = ctypes.c_int(), ctypes.c_int()
     for label, fn, args in (
@@ -431,8 +439,12 @@ def phase_build() -> build.KernelLibrary:
              lib.lib.local_attention_fwd_occupancy, ()),
             ("attn_fwd_sm90_kernel row 2 bf16 at Tk 256",
              lib.lib.full_attention_fwd_occupancy, (256,)),
+            ("adain_conv_sm90_kernel row 6 bf16",
+             lib.lib.adain_conv_fwd_occupancy, ()),
             ("conv_transpose_sm90_kernel row 10 bf16",
              lib.lib.conv_transpose_fwd_occupancy, ()),
+            ("synth_head_sm90_kernel row 12 bf16",
+             lib.lib.synthesis_head_fwd_occupancy, ()),
             ("dq_sm90_kernel row 4 bf16",
              lib.lib.local_attention_bwd_occupancy, (0,)),
             ("dkv_sm90_kernel row 5 bf16",
@@ -661,37 +673,99 @@ def _check_local_attention_short(chunk: int) -> tuple[dict, float]:
     return res, max(errs)
 
 
-def check_synthesis_head(n_fft: int = 48, hop: int = 12, K: int = 7) -> dict:
-    g = torch.Generator(device="cuda").manual_seed(2)
-    B, T, C = 32, 25600, 128
+# Row 12's shapes on the paths: (B, T) of the vocoder head's input frames
+# at the 1-step batch 32 (1024 mel frames x 25) and long-form (4 x 4864).
+_HEAD_CASES = {"one_step_b32": (32, 25600), "long_form": (4, 121600)}
+
+
+def _head_inputs(B: int, T: int, dtype, g, *, C: int = 128, K: int = 7,
+                 n_fft: int = 48):
+    """x (B, T, C) as a view of (B, C, T) memory, as the vocoder's last
+    resblocks hand it over; a K-tap head conv (K, C, 3 n_freq) and bias."""
     n_freq = n_fft // 2 + 1
-    errs = []
-    for dtype in (torch.float32, torch.bfloat16):
-        x = (0.5 * torch.randn(B, T, C, generator=g, device="cuda")).to(dtype)
-        w = torch.randn(K, C, 3 * n_freq, generator=g, device="cuda") \
-            * (K * C) ** -0.5
-        b = 0.1 * torch.randn(3 * n_freq, generator=g, device="cuda")
-        out = head_kernel.synthesis_head_cuda(x, w, b, n_fft=n_fft, hop=hop)
-        ref = head_kernel.synthesis_head_plain(x, w, b, n_fft=n_fft, hop=hop)
-        torch.cuda.synchronize()
-        if out.shape != ref.shape:
-            raise AssertionError(f"head shape {out.shape} vs {ref.shape}")
-        errs.append(check_close("synthesis_head", "", dtype, out, ref))
-    ms = cuda_ms(lambda: head_kernel.synthesis_head_cuda(x, w, b, n_fft=n_fft,
-                                                         hop=hop))
-    plain_ms = cuda_ms(lambda: head_kernel.synthesis_head_plain(
-        x, w, b, n_fft=n_fft, hop=hop), iters=3)
+    x = (0.5 * torch.randn(B, C, T, generator=g, device="cuda")).to(dtype)
+    w = torch.randn(K, C, 3 * n_freq, generator=g, device="cuda") \
+        * (K * C) ** -0.5
+    b = 0.1 * torch.randn(3 * n_freq, generator=g, device="cuda")
+    return x.transpose(1, 2), w, b
+
+
+def _synthesis_head_work(B: int, T: int, C: int, K: int, n_fft: int,
+                         hop: int, itemsize: int) -> tuple[int, int]:
+    """Bytes (x, the weight and bias in x's dtype, the fp32 synthesis basis
+    and inverse envelope read once, the fp32 waveform written once) and
+    the FLOPs the function needs: the head conv's products over the (frame,
+    tap) pairs whose input row lies in [0, T) (the SAME padding's zeros
+    need none), and the overlap-add's over the (frame, basis sample) pairs
+    whose sample lands in the trimmed output."""
+    n_freq = n_fft // 2 + 1
     out_len = (T - 1) * hop
-    M = (n_fft - 1) // hop + 1
-    n_bytes = (x.numel() * 2 + K * C * 3 * n_freq * 2 + 3 * n_freq * 2
+    start = n_fft // 2
+    halo = (K - 1) // 2
+    conv_pairs = sum(max(0, T - abs(k - halo)) for k in range(K))
+    s0 = np.arange(T, dtype=np.int64) * hop - start     # sample of n = 0
+    ola_pairs = int(np.clip(np.minimum(n_fft, out_len - s0)
+                            - np.maximum(0, -s0), 0, None).sum())
+    n_bytes = ((B * T * C + K * C * 3 * n_freq + 3 * n_freq) * itemsize
+               + (2 * n_freq * n_fft + out_len + n_fft) * 4
                + B * out_len * 4)
-    flops = 2 * B * T * K * C * 3 * n_freq + 2 * B * out_len * M * 2 * n_freq
-    bms, by = bound_ms(n_bytes, flops, BF16_FLOP_PER_S)
-    print(f"  synthesis_head bf16 B{B} T{T} C{C} K{K} n_fft{n_fft} hop{hop}: "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bms:.4f} ms "
-          f"({by})")
-    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": None}
+    flops = (2 * B * conv_pairs * C * 3 * n_freq
+             + 2 * B * ola_pairs * 2 * n_freq)
+    return n_bytes, flops
+
+
+def check_synthesis_head(card: str, n_fft: int = 48, hop: int = 12,
+                         K: int = 7) -> dict:
+    """Row 12 at the vocoder heads of the 1-step batch 32 (32 x 25 600
+    frames) and long-form (4 x 121 600), C 128, x the (B, C, T)-major view
+    the vocoder hands over: fp32 and bf16 against the plain version (bf16
+    also from a contiguous (B, T, C) x, which the wrapper copies into that
+    layout); bf16 timed through ``dispatch.synthesis_head``, so a copy
+    anywhere on the way would be counted, with the time such a copy takes
+    beside it."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    C = 128
+    res, errs = {}, []
+    for label, (B, T) in _HEAD_CASES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w, b = _head_inputs(B, T, dtype, g, C=C, K=K, n_fft=n_fft)
+            out = head_kernel.synthesis_head_cuda(x, w, b, n_fft=n_fft,
+                                                  hop=hop)
+            ref = head_kernel.synthesis_head_plain(x, w, b, n_fft=n_fft,
+                                                   hop=hop)
+            torch.cuda.synchronize()
+            if out.shape != ref.shape or out.shape != (B, (T - 1) * hop):
+                raise AssertionError(f"head {label}: shape {out.shape} vs "
+                                     f"{ref.shape}")
+            errs.append(check_close("synthesis_head", label, dtype, out, ref))
+            if label == "one_step_b32" and dtype == torch.bfloat16:
+                out = head_kernel.synthesis_head_cuda(
+                    x.contiguous(), w, b, n_fft=n_fft, hop=hop)
+                torch.cuda.synchronize()
+                errs.append(check_close("synthesis_head", "contiguous",
+                                        dtype, out, ref))
+            del out, ref
+        ms = cuda_ms(lambda: dispatch.synthesis_head(x, w, b, n_fft=n_fft,
+                                                     hop=hop))
+        plain_ms = cuda_ms(lambda: head_kernel.synthesis_head_plain(
+            x, w, b, n_fft=n_fft, hop=hop), iters=3)
+        copy_ms = cuda_ms(lambda: x.contiguous())
+        bms, by = bound_ms(*_synthesis_head_work(B, T, C, K, n_fft, hop, 2),
+                           BF16_FLOP_PER_S)
+        print(f"  synthesis_head bf16 {label} B{B} T{T} C{C} K{K} n_fft{n_fft} "
+              f"hop{hop}, (B, C, T)-major x, through dispatch: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
+              f"({by}); a contiguous copy of x would add {copy_ms:.4f} ms  "
+              f"[{card}]")
+        entry = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                 "bound_by": by, "library_ms": None, "copy_ms": copy_ms}
+        if label == "one_step_b32":
+            res.update(entry)
+        else:
+            res[label] = entry
+        del x
+    res["max_abs_err"] = max(errs)
+    return res
 
 
 def _full_attention_inputs(B, Tq, Tk, dtype, g, *, n_prompt=0,
@@ -926,27 +1000,43 @@ def _adain_library(x, sc, sh, mean, rstd, w, dilation):
     return conv_ops.conv1d(h, w, dilation=dilation)
 
 
-def _adain_work(x, sc, sh, w):
+def _adain_work(x, sc, sh, w, dilation: int):
     """Bytes (x, scale, shift, the statistics and w read once, y written
-    once) and the products' FLOPs of one pass."""
+    once; a global scale or shift is one (C) row a batch row) and the
+    products' FLOPs of one pass: the (frame, tap) pairs whose input row
+    lies in [0, T) (the SAME padding's zero rows need no products)."""
     B, T, C = x.shape
     K, _, C_out = w.shape
     it = x.element_size()
-    n_bytes = ((x.numel() + sc[..., 0].numel() * C * 2 + w.numel()
-                + B * T * C_out) * it + 2 * B * C * 4)
-    return n_bytes, 2 * B * T * K * C * C_out
+    halo = (K - 1) * dilation // 2
+    pairs = sum(max(0, T - abs(k * dilation - halo)) for k in range(K))
+    n_bytes = ((x.numel() + sc[..., 0].numel() * C + sh[..., 0].numel() * C
+                + w.numel() + B * T * C_out) * it + 2 * B * C * 4)
+    return n_bytes, 2 * B * pairs * C * C_out
+
+
+# Row 6's shapes on the paths, (B, T): long-form, the 1-step batch 32 (and
+# serving's 1024 bucket), serving's 512 and 256 buckets, the train step's
+# forward.  The fp32 variant is checked at the first two.
+_ADAIN_CASES = {"long_form": (4, 4864), "one_step_b32": (32, 1024),
+                "serve_512": (32, 512), "serve_256": (32, 256),
+                "train_b16": (16, 1024)}
 
 
 def check_adain_conv(card: str) -> dict:
-    """The fused AdaIN conv pass (row 6) at the long-form shapes (B 4, T
-    4864) and the 1-step batch-32 ones (B 32, T 1024), C 512 -> 512, K 5:
-    fp32 and bf16, dilations 1, 3 and 9, time-varying and global style.
-    Times at bf16 with time-varying style, per dilation; the library time
-    is the PyTorch modulation plus cuDNN's dilated conv."""
+    """The fused AdaIN conv pass (row 6) at every shape the paths launch
+    (``_ADAIN_CASES``), C 512 -> 512, K 5: bf16 (and fp32 at the long-form
+    and 1-step batch-32 shapes), dilations 1, 3 and 9, time-varying and
+    global style.  Times at bf16 with time-varying style, per dilation
+    (global style at d 1 too); the library time is the PyTorch modulation
+    plus cuDNN's dilated conv."""
     g = torch.Generator(device="cuda").manual_seed(7)
     res, errs = {}, []
-    for label, (B, T) in (("long_form", (4, 4864)), ("one_step_b32", (32, 1024))):
-        for dtype in (torch.float32, torch.bfloat16):
+    for label, (B, T) in _ADAIN_CASES.items():
+        dtypes = ((torch.float32, torch.bfloat16)
+                  if label in ("long_form", "one_step_b32")
+                  else (torch.bfloat16,))
+        for dtype in dtypes:
             for tv in (True, False):
                 args = _adain_inputs(B, T, dtype, g, time_varying=tv)
                 for d in (1, 3, 9):
@@ -956,10 +1046,14 @@ def check_adain_conv(card: str) -> dict:
                     errs.append(check_close(
                         "adain_conv", f"{label} d{d}{'' if tv else ' global'}",
                         dtype, out, ref))
+        glob = _adain_inputs(B, T, torch.bfloat16, g, time_varying=False)
+        global_ms = cuda_ms(lambda: ac_kernel.adain_conv_pass_cuda(
+            *glob, dilation=1))
         args = _adain_inputs(B, T, torch.bfloat16, g, time_varying=True)
-        bms, by = bound_ms(*_adain_work(*args[:3], args[5]), BF16_FLOP_PER_S)
         h = _adain_library(*args, 1)
         for d in (1, 3, 9):
+            bms, by = bound_ms(*_adain_work(*args[:3], args[5], d),
+                               BF16_FLOP_PER_S)
             ms = cuda_ms(lambda: ac_kernel.adain_conv_pass_cuda(*args,
                                                                 dilation=d))
             plain_ms = cuda_ms(lambda: ac_kernel.adain_conv_pass_plain(
@@ -969,16 +1063,20 @@ def check_adain_conv(card: str) -> dict:
                               iters=5)
             print(f"  adain_conv bf16 {label} B{B} T{T} 512->512 K5 d{d}: "
                   + _conv_time_label(ms, plain_ms, library_ms, bms, by, card)
-                  + f"; cuDNN conv alone {conv_ms:.4f} ms")
+                  + f"; cuDNN conv alone {conv_ms:.4f} ms"
+                  + (f"; global style {global_ms:.4f} ms" if d == 1 else ""))
             if label == "one_step_b32":
                 print(f"    cuDNN kernels of the library call: "
                       f"{device_kernels(lambda: _adain_library(*args, d))}")
             entry = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
                      "bound_by": by, "library_ms": library_ms}
+            if d == 1:
+                entry["global_ms"] = global_ms
             if label == "long_form" and d == 1:
                 res.update(entry)
             else:
                 res[f"{label}_d{d}"] = entry
+        del args, glob, h
     res["max_abs_err"] = max(errs)
     return res
 
@@ -1354,9 +1452,9 @@ def check_adain_conv_bwd(card: str) -> dict:
                     dtype, out, ref))
     args = _adain_inputs(B, T, torch.bfloat16, g, time_varying=True)
     dc = torch.randn(B, T, 512, generator=g, device="cuda").to(torch.bfloat16)
-    n_bytes, flops = _adain_work(*args[:3], args[5])
-    bms, by = bound_ms(n_bytes + dc.numel() * 2, flops, BF16_FLOP_PER_S)
     for d in (1, 3, 9):
+        n_bytes, flops = _adain_work(*args[:3], args[5], d)
+        bms, by = bound_ms(n_bytes + dc.numel() * 2, flops, BF16_FLOP_PER_S)
         ms = cuda_ms(lambda: ac_kernel.adain_conv_bwd_data_cuda(
             dc, *args, dilation=d))
         plain_ms = cuda_ms(lambda: ac_kernel.adain_conv_bwd_data_plain(
@@ -1436,7 +1534,7 @@ def check_istft(card: str, n_fft: int = 48, hop: int = 12) -> dict:
 
 def phase_kernel_checks(card: str) -> dict:
     return {"local_attention": check_local_attention(),
-            "synthesis_head": check_synthesis_head(),
+            "synthesis_head": check_synthesis_head(card),
             "full_attention": check_full_attention(card),
             **check_sampler(card),
             "adain_conv": check_adain_conv(card),
@@ -2357,10 +2455,11 @@ def check_serve_parity(card: str, params) -> None:
                              f"table {style_err}")
 
 
-def phase_serve(card: str) -> dict:
+def phase_serve(card: str, light: bool = False) -> dict:
     """Level 5 at full size: (a) 256 requests, a warm-up call and the
     median of 5; (b) the contract's 4096 requests, once; (c) 256 requests
-    with the vocoder, once; then the fp32 card-vs-CPU check."""
+    with the vocoder, once; then the fp32 card-vs-CPU check.  ``light``
+    runs (a) alone (``--paths-against``)."""
     cfg = serve_config()
     a = cfg.model.audio
     params = init_params(cfg, seed=0, device="cpu")
@@ -2370,6 +2469,10 @@ def phase_serve(card: str) -> dict:
     server.serve_batch(reqs)                          # warm-up
     res = {"serve": drive_serve(server, reqs, n_calls=5,
                                 label="serve 256 (mel)", card=card)}
+    if light:
+        del res["serve"]["results"]
+        res["server"], res["reqs"] = server, reqs
+        return res
     big = serve_requests(cfg, cfg.serve.max_global_batch)
     res["serve_4096"] = drive_serve(server, big, n_calls=1,
                                     label="serve 4096 (mel)", card=card)
@@ -2440,7 +2543,7 @@ def phase_verify(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# --against: rows 1 and 2 in bf16 against a parent commit's kernels
+# --against: every row's kernels against a parent commit's
 # ---------------------------------------------------------------------------
 
 def _parent_library(parent: Path) -> build.KernelLibrary:
@@ -2535,6 +2638,97 @@ def _launch_convt(lib, x, w, stride: int = 5) -> torch.Tensor:
     return out.transpose(1, 2)
 
 
+def _launch_adain(lib, x, sc, sh, mean, rstd, w, dilation: int):
+    """``adain_conv_fwd`` of ``lib`` (row 6) on bf16 CUDA tensors."""
+    B, T, C = x.shape
+    K, _, C_out = w.shape
+    out = torch.empty(B, T, C_out, dtype=x.dtype, device=x.device)
+    build.check(lib.adain_conv_fwd(
+        1, x.data_ptr(), sc.data_ptr(), sh.data_ptr(), mean.data_ptr(),
+        rstd.data_ptr(), w.data_ptr(), out.data_ptr(), B, T, C, C_out, K,
+        dilation, *ac_kernel._bt_strides(x), *ac_kernel._bt_strides(sc),
+        *ac_kernel._bt_strides(sh), torch.cuda.current_stream().cuda_stream),
+        "adain_conv_fwd")
+    return out
+
+
+def _launch_adain_bwd(lib, dc, x, sc, sh, mean, rstd, w, dilation: int):
+    """``adain_conv_bwd_data`` of ``lib`` (row 7) on bf16 CUDA tensors."""
+    B, T, C = x.shape
+    K, _, C_out = w.shape
+    out = torch.empty(B, T, C, dtype=x.dtype, device=x.device)
+    build.check(lib.adain_conv_bwd_data(
+        1, dc.data_ptr(), x.data_ptr(), sc.data_ptr(), sh.data_ptr(),
+        mean.data_ptr(), rstd.data_ptr(), w.data_ptr(), out.data_ptr(), B, T,
+        C, C_out, K, dilation, *ac_kernel._bt_strides(x),
+        *ac_kernel._bt_strides(sc), *ac_kernel._bt_strides(sh),
+        torch.cuda.current_stream().cuda_stream), "adain_conv_bwd_data")
+    return out
+
+
+def _launch_euler(lib, x, dc, du, s_cur, s_next, guidance: float = 3.0):
+    """``sampler_euler_fwd`` of ``lib`` (row 8) on fp32 CUDA tensors."""
+    s_cur, _, ds, _ = sampler_kernel._sigmas(s_cur, s_next)
+    x_out, d_out = torch.empty_like(x), torch.empty_like(x)
+    build.check(lib.sampler_euler_fwd(
+        x.data_ptr(), dc.data_ptr(), du.data_ptr(), x_out.data_ptr(),
+        d_out.data_ptr(), x.numel(), float(s_cur), float(ds),
+        float(np.float32(guidance)), torch.cuda.current_stream().cuda_stream),
+        "sampler_euler_fwd")
+    return x_out, d_out
+
+
+def _launch_heun(lib, x, xe, dc, du, d1, s_cur, s_next,
+                 guidance: float = 3.0):
+    """``sampler_heun_fwd`` of ``lib`` (row 9) on fp32 CUDA tensors."""
+    _, _, ds, s_div = sampler_kernel._sigmas(s_cur, s_next)
+    out = torch.empty_like(x)
+    build.check(lib.sampler_heun_fwd(
+        x.data_ptr(), xe.data_ptr(), dc.data_ptr(), du.data_ptr(),
+        d1.data_ptr(), out.data_ptr(), x.numel(), float(ds * np.float32(0.5)),
+        float(s_div), float(np.float32(guidance)),
+        torch.cuda.current_stream().cuda_stream), "sampler_heun_fwd")
+    return out
+
+
+def _launch_istft(lib, real, imag, n_fft: int = 48, hop: int = 12):
+    """``istft_fwd`` of ``lib`` (row 11) on contiguous fp32 CUDA spectra."""
+    B, F, _ = real.shape
+    FT, syn_shared = istft_kernel.launch_geometry(n_fft, hop)
+    syn, inv_env = head_kernel.ola_constants(n_fft, hop, F, real.device)
+    out = torch.empty(B, (F - 1) * hop, dtype=torch.float32,
+                      device=real.device)
+    build.check(lib.istft_fwd(
+        real.data_ptr(), imag.data_ptr(), syn.data_ptr(), inv_env.data_ptr(),
+        out.data_ptr(), B, F, n_fft, hop, FT, int(syn_shared),
+        torch.cuda.current_stream().cuda_stream), "istft_fwd")
+    return out
+
+
+def _launch_head(lib, x, w, b, n_fft: int = 48, hop: int = 12):
+    """``synthesis_head_fwd`` of ``lib`` (row 12) on a bf16 CUDA x, w and b,
+    through that library's ABI: with x's strides and the tile walk (this
+    tree), or with x contiguous (B, T, C), copied here (a tree before the
+    strides, whose ``dispatch.synthesis_head`` made that copy)."""
+    B, T, C = x.shape
+    K = w.shape[0]
+    syn, inv_env = head_kernel.ola_constants(n_fft, hop, T, x.device)
+    out = torch.empty(B, (T - 1) * hop, dtype=torch.float32, device=x.device)
+    fn = lib.synthesis_head_fwd
+    if len(fn.argtypes) == 14:
+        x = x.contiguous()
+        extra = ()
+    else:
+        extra = (*x.stride(), *head_kernel.sm90_walk(
+            B, T, torch.cuda.get_device_properties(0).multi_processor_count))
+    build.check(fn(1, x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                   syn.data_ptr(), inv_env.data_ptr(), out.data_ptr(), B, T,
+                   C, K, n_fft, hop, *extra,
+                   torch.cuda.current_stream().cuda_stream),
+                "synthesis_head_fwd")
+    return out
+
+
 def _kernel_name(mangled: str) -> str:
     """The kernel's name and its template's policy from a mangled entry
     name (each identifier is prefixed by its length)."""
@@ -2555,34 +2749,45 @@ def _kernel_name(mangled: str) -> str:
 
 def _print_resources(who: str, lib: build.KernelLibrary) -> None:
     """Registers, spills and static shared memory of the bf16 kernels of
-    rows 1-5 and 10 from a library's ``-Xptxas -v`` log; blocks per SM of
-    the backward kernels (rows 4, 5) where the library reports them."""
+    rows 1-7, 10 and 12 from a library's ``-Xptxas -v`` log; blocks per SM
+    of rows 4, 5, 6 and 12 where the library reports them."""
     entry = ""
     for line in lib.log.splitlines():
         if "Compiling entry" in line:
             entry = _kernel_name(line.split()[-3].strip("'"))
         if any(k in entry for k in ("attn_fwd", "conv_transpose", "dq_tc",
-                                    "dkv_tc", "dq_sm90", "dkv_sm90")) and (
+                                    "dkv_tc", "dq_sm90", "dkv_sm90",
+                                    "adain_conv_tc", "adain_conv_sm90",
+                                    "synth_head")) and (
                 "Used" in line or "spill" in line):
             print(f"    {who} {entry}: {line.strip()}")
-    occupancy = getattr(lib.lib, "local_attention_bwd_occupancy", None)
-    if occupancy is None:
-        print(f"    {who}: rows 4-5 blocks per SM not reported by that "
-              f"library")
-        return
     blocks, smem = ctypes.c_int(), ctypes.c_int()
-    for row, dkv in ((4, 0), (5, 1)):
-        build.check(occupancy(dkv, ctypes.byref(blocks), ctypes.byref(smem)),
-                    "local_attention_bwd_occupancy")
-        print(f"    {who} row {row} bf16: {smem.value} bytes of dynamic "
+    for label, name, args in (("row 4", "local_attention_bwd_occupancy", (0,)),
+                              ("row 5", "local_attention_bwd_occupancy", (1,)),
+                              ("row 6", "adain_conv_fwd_occupancy", ()),
+                              ("row 12", "synthesis_head_fwd_occupancy", ())):
+        occupancy = getattr(lib.lib, name, None)
+        if occupancy is None:
+            print(f"    {who}: {label} blocks per SM not reported by that "
+                  f"library")
+            continue
+        occupancy.argtypes = [ctypes.c_int] * len(args) + [ctypes.c_void_p] * 2
+        build.check(occupancy(*args, ctypes.byref(blocks),
+                              ctypes.byref(smem)), name)
+        print(f"    {who} {label} bf16: {smem.value} bytes of dynamic "
               f"shared memory a block, {blocks.value} blocks per SM")
 
 
 def phase_against_parent(parent: str, card: str) -> dict:
-    """Rows 1, 2, 3, 4, 5 and 10 in bf16 at every shape the paths launch
-    them: this tree's kernels against those of the tree unpacked at
-    ``parent``, both held against the plain version, then timed in turns
-    (parent, this, this, parent) on the same inputs."""
+    """Rows 1-7, 10 and 12 in bf16 and rows 8, 9 and 11 in fp32 at every
+    shape the paths launch them (row 6 with time-varying style at each
+    dilation and with global style at d 1; row 12 on the vocoder's (B, C,
+    T)-major view,
+    which a parent without the strided entry point is given as a
+    contiguous copy, timed with the copy): this tree's kernels against
+    those of the tree unpacked at ``parent``, both held against the plain
+    version, then timed in turns (parent, this, this, parent) on the same
+    inputs."""
     old = _parent_library(Path(parent).resolve())
     new = build.library()
     print(f"  parent library {old.path} (built in {old.build_seconds:.1f} "
@@ -2636,29 +2841,78 @@ def phase_against_parent(parent: str, card: str) -> dict:
         cases.append((f"row 5 B16 T{T} c{chunk} masked", _launch_bwd_dkv,
                       (*args, chunk), la_kernel.local_attention_bwd_dkv_plain(
                           *args, chunk=chunk)))
+    for label, (B, T) in _ADAIN_CASES.items():
+        for tv in (True, False):
+            args = _adain_inputs(B, T, torch.bfloat16, g, time_varying=tv)
+            for d in ((1, 3, 9) if tv else (1,)):
+                cases.append((f"row 6 {label} B{B} T{T} d{d}"
+                              f"{'' if tv else ' global'}", _launch_adain,
+                              (*args, d), ac_kernel.adain_conv_pass_plain(
+                                  *args, dilation=d)))
+    args = _adain_inputs(16, 1024, torch.bfloat16, g, time_varying=True)
+    dc = torch.randn(16, 1024, 512, generator=g, device="cuda").to(
+        torch.bfloat16)
+    for d in (1, 3, 9):
+        cases.append((f"row 7 train_b16 B16 T1024 d{d}", _launch_adain_bwd,
+                      (dc, *args, d), ac_kernel.adain_conv_bwd_data_plain(
+                          dc, *args, dilation=d)))
+    sig = karras_sigmas(bench_config().model.diffusion, 16)
+    x = torch.randn(32, 50, 128, generator=g, device="cuda") * float(sig[0])
+    den2 = torch.randn(64, 50, 128, generator=g, device="cuda")
+    dc, du = den2[:32], den2[32:]
+    cases.append(("row 8 multi_step B32 (50, 128) step 0", _launch_euler,
+                  (x, dc, du, sig[0], sig[1]), sampler_kernel.euler_step_plain(
+                      x, dc, du, sig[0], sig[1], guidance=3.0),
+                  torch.float32))
+    xe, d1 = (torch.randn(32, 50, 128, generator=g, device="cuda")
+              for _ in range(2))
+    cases.append(("row 9 multi_step B32 (50, 128) step 14", _launch_heun,
+                  (x, xe, dc, du, d1, sig[14], sig[15]),
+                  sampler_kernel.heun_correction_plain(
+                      x, xe, dc, du, d1, sig[14], sig[15], guidance=3.0),
+                  torch.float32))
+    for B, F in ((32, 25600), (4, 121600)):
+        real, imag = (torch.randn(B, F, 25, generator=g, device="cuda")
+                      for _ in range(2))
+        cases.append((f"row 11 B{B} F{F}", _launch_istft, (real, imag),
+                      istft_kernel.istft_plain(real, imag, n_fft=48, hop=12),
+                      torch.float32))
     for label, (B, T, C_in, C_out) in _CONVT_CASES.items():
         x, w = _convt_inputs(B, T, C_in, C_out, torch.bfloat16, g)
         cases.append((f"row 10 {label} ({B}, {T}, {C_in}) -> {C_out}",
                       _launch_convt, (x, w),
                       ct_kernel.conv_transpose1d_plain(x, w, stride=5,
                                                        negative_slope=0.1)))
+    for label, (B, T) in _HEAD_CASES.items():
+        x, w, b = _head_inputs(B, T, torch.bfloat16, g)
+        w, b = w.to(torch.bfloat16), b.to(torch.bfloat16)
+        cases.append((f"row 12 {label} B{B} T{T} (B, C, T)-major x",
+                      _launch_head, (x, w, b),
+                      head_kernel.synthesis_head_plain(x, w, b, n_fft=48,
+                                                       hop=12)))
     names = {_launch_local: "local_attention", _launch_full: "full_attention",
              _launch_local_lse: "local_attention_fwd_lse",
              _launch_bwd_dq: "local_attention_bwd_dq",
              _launch_bwd_dkv: "local_attention_bwd_dkv",
-             _launch_convt: "conv_transpose"}
-    parts = {_launch_local_lse: ("out", "lse"), _launch_bwd_dkv: ("dk", "dv")}
+             _launch_convt: "conv_transpose", _launch_adain: "adain_conv",
+             _launch_head: "synthesis_head",
+             _launch_adain_bwd: "adain_conv_bwd_data",
+             _launch_euler: "sampler_euler", _launch_heun: "sampler_heun",
+             _launch_istft: "istft"}
+    parts = {_launch_local_lse: ("out", "lse"), _launch_bwd_dkv: ("dk", "dv"),
+             _launch_euler: ("x", "d")}
     res = {}
-    for label, launch, args, ref in cases:
+    for label, launch, args, ref, *dtype in cases:
+        dtype = dtype[0] if dtype else torch.bfloat16
         fns = [lambda lib=lib: launch(lib.lib, *args) for lib in (old, new)]
         name = names[launch]
         for who, fn in zip(("parent", "this"), fns):
             got = fn()
             if launch not in parts:
-                check_close(name, who, torch.bfloat16, got, ref)
+                check_close(name, who, dtype, got, ref)
                 continue
             for part, o, r in zip(parts[launch], got, ref):
-                check_close(name, f"{who} {part}", torch.bfloat16, o, r)
+                check_close(name, f"{who} {part}", dtype, o, r)
         t, host = zip(*(timed(fns[i], iters=20) for i in (0, 1, 1, 0)))
         speedup = (t[0] + t[3]) / (t[1] + t[2])
         print(f"  {label}: parent {t[0]:.4f} / {t[3]:.4f} ms, this "
@@ -2671,9 +2925,11 @@ def phase_against_parent(parent: str, card: str) -> dict:
     return res
 
 
-# One tree's 1-step, long-form and train-step phases with their profiles,
-# run from that tree's root (``--paths-against``).
+# One tree's 1-step, long-form and serving phases with their profiles, run
+# from that tree's root (``--paths-against``); a tree whose phase_serve has
+# no ``light`` option runs it whole.
 _PATHS_IN_TURNS = """
+import inspect
 import chip_smoke as cs
 card = cs.phase_device()
 cs.phase_build()
@@ -2681,17 +2937,19 @@ m = cs.phase_main_path(card)
 cs.phase_profile(m["fn"], m["inputs32"], card, "1-step batch 32")
 lf = cs.phase_longform(card)[4864]
 cs.phase_profile(lf["fn"], lf["inputs"], card, "long-form batch 4 x 4864")
-tr = cs.phase_train(card)
-cs.phase_profile(tr["fn"], tr["inputs"], card,
-                 "stage-1 train step, batch 16 x 1024")
+light = "light" in inspect.signature(cs.phase_serve).parameters
+sv = cs.phase_serve(card, **({"light": True} if light else {}))
+server, reqs = sv.pop("server"), sv.pop("reqs")
+cs.phase_profile(lambda: server.serve_batch(reqs), (), card,
+                 "serve 256 requests (mel)")
 """
 
 
 def phase_paths_against_parent(parent: str) -> None:
-    """The 1-step (batch 1 and 32), long-form and train-step phases, with
-    their profiles, of the tree unpacked at ``parent`` and of this one in
-    turns (parent, this, this, parent), each in its own process from its
-    own root, on one card."""
+    """The 1-step (batch 1 and 32), long-form and serving (256 requests)
+    phases, with their profiles, of the tree unpacked at ``parent`` and of
+    this one in turns (parent, this, this, parent), each in its own
+    process from its own root, on one card."""
     for who, root in (("parent", parent), ("this", REPO), ("this", REPO),
                       ("parent", parent)):
         print(f"== {who}: {Path(root).resolve()}", flush=True)
@@ -2761,10 +3019,10 @@ def phase_profile(fn, inputs, card: str, label: str) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", metavar="DIR",
-                    help="only time rows 1-5 and 10 (bf16) against the "
+                    help="only time the twelve rows' kernels against the "
                          "kernels of the tree unpacked at DIR, in turns")
     ap.add_argument("--paths-against", metavar="DIR",
-                    help="only run the 1-step, long-form and train-step "
+                    help="only run the 1-step, long-form and serving "
                          "phases of the tree unpacked at DIR and of this "
                          "one, in turns")
     args = ap.parse_args()

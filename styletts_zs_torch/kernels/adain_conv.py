@@ -115,6 +115,36 @@ def _check_pass(x, scale, shift, mean, rstd, w, dilation: int) -> None:
             raise ValueError(f"{name}: need (B, C) fp32 on x's device")
 
 
+# The bf16 kernel (``adain_conv_sm90_kernel``): a block owns SM90_FRAMES
+# frames x SM90_CHANNELS output channels of one batch row and walks the
+# input channels SM90_CK at a time over a window of SM90_FRAMES + 2 halo
+# frames, for the decoder's SM90_K taps and a halo of at most SM90_MAX_HALO
+# frames.
+SM90_FRAMES, SM90_CHANNELS, SM90_CK = 128, 256, 16
+SM90_K, SM90_MAX_HALO = 5, 18
+
+
+def frame_tiles(T: int, K: int, dilation: int) -> list[tuple[int, int, int]]:
+    """The bf16 kernel's frame tiles along T (its grid's x): for each, the
+    first output frame, the first window frame and the window's frames."""
+    halo = (K - 1) * dilation // 2
+    return [(t0, t0 - halo, SM90_FRAMES + 2 * halo)
+            for t0 in range(0, T, SM90_FRAMES)]
+
+
+def _check_sm90(scale, shift, w, dilation: int) -> None:
+    """Raise on a bf16 pass the kernel does not take."""
+    K, C, C_out = w.shape
+    if K != SM90_K or (K - 1) * dilation // 2 > SM90_MAX_HALO or \
+            C % SM90_CK or C_out % SM90_CHANNELS or scale.ndim != shift.ndim:
+        raise ValueError(
+            f"bf16 needs K {SM90_K}, a halo of at most "
+            f"{SM90_MAX_HALO} frames, C % {SM90_CK} == 0, C_out % "
+            f"{SM90_CHANNELS} == 0 and scale, shift both per-frame or both "
+            f"global; got w {tuple(w.shape)}, dilation {dilation}, "
+            f"scale {tuple(scale.shape)}, shift {tuple(shift.shape)}")
+
+
 def _bt_strides(s):
     """(b, t) strides of a (B, T, C) tensor or a (B, C) one (t stride 0)."""
     return s.stride(0), (s.stride(1) if s.ndim == 3 else 0)
@@ -127,14 +157,16 @@ def adain_conv_pass_cuda(x, scale, shift, mean, rstd, w, *,
     x (B, T, C) and scale/shift (B, T, C) or (B, C): CUDA tensors of one
     dtype (fp32 or bf16) with a contiguous channel dimension and any other
     strides, so the scale/shift views of the decoder's style projection go
-    in without a copy (bf16: 16-byte aligned rows and C, C_out multiples of
-    8); mean/rstd (B, C) fp32; w (K, C, C_out), cast to x's dtype.  K odd
-    and (K-1)*dilation even.  Raises on anything else.
+    in without a copy (bf16: 16-byte aligned rows, and ``_check_sm90``'s
+    shapes); mean/rstd (B, C) fp32; w (K, C, C_out), cast to x's dtype.  K
+    odd and (K-1)*dilation even.  Raises on anything else.
     """
     global launches
     B, T, C = x.shape
     K, _, C_out = w.shape
     _check_pass(x, scale, shift, mean, rstd, w, dilation)
+    if x.dtype == torch.bfloat16:
+        _check_sm90(scale, shift, w, dilation)
     mean, rstd = mean.contiguous(), rstd.contiguous()
     wt = w.to(x.dtype).contiguous()
     out = torch.empty(B, T, C_out, dtype=x.dtype, device=x.device)

@@ -57,9 +57,10 @@ _SIGNATURES = {
     # dilation, (b, t) strides of x, scale and shift, stream
     "adain_conv_bwd_data": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                             _I, _I, _I, _L, _L, _L, _L, _L, _L, _P],
-    # dtype, x, w, bias, syn, inv_env, out, B, T, C, K, n_fft, hop, stream
+    # dtype, x, w, bias, syn, inv_env, out, B, T, C, K, n_fft, hop,
+    # x strides (b, t, c), tiles_per_row, n_tiles, grid, stream
     "synthesis_head_fwd": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _I, _P],
+                           _I, _L, _L, _L, _I, _I, _I, _P],
     # dtype, q, k, v, mask (or null), out, B, Tq, Tk, H, D,
     # q strides (b, t, h), k strides, v strides, mask batch stride, scale,
     # stream
@@ -84,10 +85,12 @@ _SIGNATURES = {
     "conv_transpose_fwd": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L,
                            _L, _I, _F, _P],
     # blocks per SM and dynamic shared memory per block (int pointers) of
-    # the bf16 kernels of rows 1, 10, 2 (the latter at Tk keys) and 4 or 5
-    # (0 or 1)
+    # the bf16 kernels of rows 1, 6, 10, 12, 2 (the latter at Tk keys) and
+    # 4 or 5 (0 or 1)
     "local_attention_fwd_occupancy": [_P, _P],
+    "adain_conv_fwd_occupancy": [_P, _P],
     "conv_transpose_fwd_occupancy": [_P, _P],
+    "synthesis_head_fwd_occupancy": [_P, _P],
     "full_attention_fwd_occupancy": [_I, _P, _P],
     "local_attention_bwd_occupancy": [_I, _P, _P],
 }

@@ -163,11 +163,8 @@ def conv_transpose1d(x, kernel, *, stride: int,
 def synthesis_head(x, w, b, *, n_fft: int, hop: int) -> torch.Tensor:
     """Fused vocoder synthesis head: (B, T, C) activations -> (B, (T-1)*hop)
     fp32 waveform.  On the card the head's geometry must lie inside the
-    kernel's gate (``head_kernel.supported``), or the wrapper raises."""
-    if x.is_cuda:
-        # the vocoder's convs hand over a (B, C, T)-major view; the kernel
-        # reads (B, T, C) rows
-        x = x.contiguous()
+    kernel's gate (``head_kernel.supported``), or the wrapper raises; the
+    vocoder's (B, C, T)-major view goes in as it is."""
     fwd = _route("synthesis_head", x, head_kernel.synthesis_head_cuda,
                  head_kernel.synthesis_head_plain)
     if _needs_grad(x, w, b):

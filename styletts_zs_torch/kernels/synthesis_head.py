@@ -67,25 +67,61 @@ def ola_constants(n_fft: int, hop: int, T: int, device: torch.device):
             torch.as_tensor(inv_env, device=device))
 
 
+# The bf16 kernel at the vocoder's geometry (``synth_head_sm90_kernel``):
+# (C, K, n_fft, hop) and the output frames of one tile of its walk.
+SM90_GEOMETRY = (128, 7, 48, 12)
+SM90_TILE_FRAMES = 120
+
+
+def takes_sm90(dtype, *, C: int, K: int, n_fft: int, hop: int,
+               T: int) -> bool:
+    """Whether the bf16 sm90 kernel computes this head (frames a multiple
+    of 8, so the (B, C, T)-major view's rows are 16-byte aligned)."""
+    return (dtype == torch.bfloat16 and (C, K, n_fft, hop) == SM90_GEOMETRY
+            and T % 8 == 0)
+
+
+def sm90_walk(B: int, T: int, n_sm: int) -> tuple[int, int, int]:
+    """(tiles_per_row, n_tiles, grid) of the sm90 kernel's persistent walk:
+    tiles of ``SM90_TILE_FRAMES`` output frames covering frames 0 .. T of
+    each batch row (frame T still adds to the last samples), tile ``i`` on
+    block ``i % grid``, one block an SM."""
+    tiles_per_row = T // SM90_TILE_FRAMES + 1
+    n_tiles = B * tiles_per_row
+    return tiles_per_row, n_tiles, min(n_tiles, n_sm)
+
+
 def synthesis_head_cuda(x, w, b, *, n_fft: int, hop: int) -> torch.Tensor:
     """Launch ``csrc/synthesis_head.cu`` on the current stream.
 
-    x: (B, T, C) contiguous CUDA tensor, fp32 or bf16; w and b are cast to
-    x's dtype (the production model already holds them in it).
+    x: (B, T, C) CUDA tensor, fp32 or bf16; w and b are cast to x's dtype
+    (the production model already holds them in it).  At the vocoder's
+    geometry in bf16 the kernel reads x with frames contiguous (the (B, C,
+    T)-major view the vocoder's convs hand over) in place; another layout
+    is copied into it.  Other shapes take x contiguous (B, T, C).
     """
     global launches
     B, T, C = x.shape
     K = w.shape[0]
     n_freq = n_fft // 2 + 1
-    if not x.is_cuda or x.dtype not in _DTYPES or not x.is_contiguous():
-        raise ValueError(f"x: need a contiguous fp32/bf16 CUDA tensor, got "
-                         f"{x.device} {x.dtype}")
+    if not x.is_cuda or x.dtype not in _DTYPES:
+        raise ValueError(f"x: need an fp32/bf16 CUDA tensor, got {x.device} "
+                         f"{x.dtype}")
     if w.shape != (K, C, 3 * n_freq) or b.shape != (3 * n_freq,):
         raise ValueError(f"w {tuple(w.shape)} / b {tuple(b.shape)} do not "
                          f"fit C={C}, n_fft={n_fft}")
     if not supported(n_fft=n_fft, hop=hop, K=K) or T < 2:
         raise ValueError(f"shape outside the kernel's gate: n_fft={n_fft} "
                          f"hop={hop} K={K} T={T}")
+    walk = (0, 0, 0)
+    if takes_sm90(x.dtype, C=C, K=K, n_fft=n_fft, hop=hop, T=T):
+        sb, st, sc = x.stride()
+        if st != 1 or sc % 8 or (B > 1 and sb % 8) or x.data_ptr() % 16:
+            x = x.transpose(1, 2).contiguous().transpose(1, 2)
+        walk = sm90_walk(B, T, torch.cuda.get_device_properties(
+            x.device).multi_processor_count)
+    else:
+        x = x.contiguous()
     wt = w.to(device=x.device, dtype=x.dtype).contiguous()
     bt = b.to(device=x.device, dtype=x.dtype).contiguous()
     syn, inv_env = ola_constants(n_fft, hop, T, x.device)
@@ -94,7 +130,8 @@ def synthesis_head_cuda(x, w, b, *, n_fft: int, hop: int) -> torch.Tensor:
     rc = lib.synthesis_head_fwd(
         _DTYPES[x.dtype], x.data_ptr(), wt.data_ptr(), bt.data_ptr(),
         syn.data_ptr(), inv_env.data_ptr(), out.data_ptr(),
-        B, T, C, K, n_fft, hop, torch.cuda.current_stream(x.device).cuda_stream)
+        B, T, C, K, n_fft, hop, *x.stride(), *walk,
+        torch.cuda.current_stream(x.device).cuda_stream)
     build.check(rc, "synthesis_head_fwd")
     launches += 1
     return out

@@ -280,6 +280,37 @@ def test_synthesis_head_gate_matches_jax(n_fft, hop, K, dtype):
                           dtype=getattr(torch, dtype)) == jax_ok
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [16, 128])
+def test_synthesis_head_dispatch_takes_the_vocoders_view(dtype, C):
+    """``dispatch.synthesis_head`` on the (B, C, T)-major view the vocoder
+    hands over (a transpose of (B, C, T) memory, passed without a copy) on
+    CPU tensors: the plain version, counted, equal to its result on the
+    contiguous input, and both within the row's bound of
+    ``synthesis_head_pallas`` in interpret mode (C 128: the bf16 kernel's
+    geometry, K 7, n_fft 48, hop 12)."""
+    n_fft, hop, K, Tn = 48, 12, 7, 40
+    n_freq = n_fft // 2 + 1
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    x = rnd(2, C, Tn, seed=61, scale=0.5)
+    w = rnd(K, C, 3 * n_freq, seed=62, scale=(K * C) ** -0.5)
+    b = rnd(3 * n_freq, seed=63, scale=0.1)
+    view = t(x).to(dtype).transpose(1, 2)
+    assert view.stride(1) == 1 and not view.is_contiguous()
+    before = dispatch.plain_calls["synthesis_head"]
+    out = dispatch.synthesis_head(view, t(w), t(b), n_fft=n_fft, hop=hop)
+    assert dispatch.plain_calls["synthesis_head"] == before + 1
+    assert not plain.cuda_calls
+    assert torch.equal(out, head.synthesis_head_plain(
+        view.contiguous(), t(w), t(b), n_fft=n_fft, hop=hop))
+    ref = vocoder_kernels.synthesis_head_pallas(
+        jnp.asarray(np.ascontiguousarray(x.transpose(0, 2, 1))).astype(jdt),
+        jnp.asarray(w), jnp.asarray(b), n_fft=n_fft, hop=hop)
+    atol, rtol = TOL[dtype]
+    assert out.shape == ref.shape == (2, (Tn - 1) * hop)
+    np.testing.assert_allclose(n(out), n(ref), atol=atol, rtol=rtol)
+
+
 # --- routing and the wrappers ------------------------------------------------
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -1116,3 +1147,127 @@ def test_istft_wrapper_refuses_what_it_cannot_take():
         istft_k.istft_cuda(t(real), t(imag), n_fft=48, hop=12)
     with pytest.raises(ValueError):            # one sample's frames too wide
         istft_k.launch_geometry(2048, 1)
+
+
+# --- rows 6 and 12: the bf16 kernels' tile walks and bounds -----------------
+
+_WALK_T = [2, 100, 1024, 4864, 25600, 121600]
+
+
+@pytest.mark.parametrize("T_", _WALK_T)
+@pytest.mark.parametrize("dilation", [1, 3, 9])
+def test_adain_conv_frame_tiles_write_every_frame_once(T_, dilation):
+    """Row 6's bf16 kernel's frame tiles (its grid's x): every output frame
+    lies in exactly one tile, each tile's window holds every row its
+    frames' K 5 taps read (frame t reads t - halo .. t + halo), and the
+    window fits the kernel's rows (at most 18 halo frames a side)."""
+    K = 5
+    halo = (K - 1) * dilation // 2
+    seen = np.zeros(T_, np.int64)
+    for t0, w0, rows in ac.frame_tiles(T_, K, dilation):
+        frames = np.arange(t0, min(t0 + ac.SM90_FRAMES, T_))
+        seen[frames] += 1
+        assert w0 <= frames[0] - halo and frames[-1] + halo < w0 + rows
+        assert rows <= ac.SM90_FRAMES + 2 * ac.SM90_MAX_HALO
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("T_", _WALK_T)
+@pytest.mark.parametrize("B,n_sm", [(1, 132), (4, 132), (32, 132), (3, 7)])
+def test_synthesis_head_walk_writes_every_sample_once(T_, B, n_sm):
+    """Row 12's bf16 kernel's persistent walk (``sm90_walk``): block g takes
+    tiles g, g + grid, ...; tile i writes the samples of output frames
+    (i % tiles_per_row) * 120 .. + 119 of batch row i // tiles_per_row that
+    land in the trimmed output (frame f's samples are f * 12 + phase - 24),
+    so every sample of every row is written exactly once, and no block is
+    left without a tile."""
+    hop, start, FT = 12, 24, head.SM90_TILE_FRAMES
+    out_len = (T_ - 1) * hop
+    tiles_per_row, n_tiles, grid = head.sm90_walk(B, T_, n_sm)
+    assert n_tiles == B * tiles_per_row and 1 <= grid <= min(n_tiles, n_sm)
+    seen = np.zeros((B, out_len), np.int64)
+    phases = np.arange(hop)
+    for g in range(grid):
+        tiles = np.arange(g, n_tiles, grid)
+        assert tiles.size
+        for tile in tiles:
+            f0 = (tile % tiles_per_row) * FT
+            s_out = ((np.arange(f0, f0 + FT)[:, None] * hop + phases)
+                     .ravel() - start)
+            s_out = s_out[(s_out >= 0) & (s_out < out_len)]
+            seen[tile // tiles_per_row, s_out] += 1
+    assert (seen == 1).all()
+
+
+def test_synthesis_head_takes_sm90_only_at_the_vocoders_geometry():
+    kw = dict(C=128, K=7, n_fft=48, hop=12, T=25600)
+    assert head.takes_sm90(torch.bfloat16, **kw)
+    assert not head.takes_sm90(torch.float32, **kw)
+    for change in (dict(C=64), dict(K=5), dict(n_fft=8, hop=4), dict(T=100)):
+        assert not head.takes_sm90(torch.bfloat16, **{**kw, **change})
+
+
+@pytest.mark.parametrize("T_", [2, 7, 40, 300])
+@pytest.mark.parametrize("dilation", [1, 3, 9])
+@pytest.mark.parametrize("tv", [True, False])
+def test_adain_conv_bound_counts_what_the_function_needs(T_, dilation, tv):
+    """chip_smoke's bound for row 6 (``_adain_work``): the bytes of x, of
+    the scale and shift as given (a global style is one (C) row a batch
+    row), of the fp32 statistics and the weight, read once, and of y,
+    written once; the FLOPs of the products whose input row the plain
+    version's shifts take from inside [0, T) (``shifted`` of ones)."""
+    B, C, C_out, K = 2, 16, 32, 5
+    x = torch.zeros(B, T_, C, dtype=torch.bfloat16)
+    style = torch.zeros(*((B, T_, 4 * C) if tv else (B, 4 * C)),
+                        dtype=torch.bfloat16)
+    sc, sh = style[..., :C], style[..., 2 * C:3 * C]
+    w = torch.zeros(K, C, C_out, dtype=torch.bfloat16)
+    halo = (K - 1) * dilation // 2
+    ones = torch.ones(1, T_, 1)
+    pairs = sum(int(ac.shifted(ones, k * dilation - halo).sum())
+                for k in range(K))
+    style_elems = B * (T_ if tv else 1) * C
+    want_bytes = ((B * T_ * C + 2 * style_elems + K * C * C_out
+                   + B * T_ * C_out) * 2 + 2 * B * C * 4)
+    assert _chip_smoke()._adain_work(x, sc, sh, w, dilation) == \
+        (want_bytes, 2 * B * pairs * C * C_out)
+
+
+@pytest.mark.parametrize("T_", [2, 5, 40, 301])
+def test_synthesis_head_bound_counts_what_the_function_needs(T_):
+    """chip_smoke's bound for row 12 (``_synthesis_head_work``): the bytes
+    of x, the weight and bias (in x's dtype), the fp32 synthesis basis and
+    inverse envelope, read once, and of the fp32 waveform, written once;
+    the FLOPs of the head conv's (frame, tap) pairs with the input row
+    inside [0, T) and of the overlap-add's (frame, basis sample) pairs
+    whose sample lands in the trimmed output, counted one by one."""
+    B, C, K, n_fft, hop = 3, 16, 7, 48, 12
+    n_freq, out_len = n_fft // 2 + 1, (T_ - 1) * hop
+    conv = sum(0 <= t_ + k - (K - 1) // 2 < T_
+               for t_ in range(T_) for k in range(K))
+    ola = sum(0 <= f * hop + m - n_fft // 2 < out_len
+              for f in range(T_) for m in range(n_fft))
+    want_bytes = ((B * T_ * C + K * C * 3 * n_freq + 3 * n_freq) * 2
+                  + (2 * n_freq * n_fft + out_len + n_fft) * 4
+                  + B * out_len * 4)
+    want_flops = 2 * B * conv * C * 3 * n_freq + 2 * B * ola * 2 * n_freq
+    assert _chip_smoke()._synthesis_head_work(B, T_, C, K, n_fft, hop, 2) \
+        == (want_bytes, want_flops)
+    assert len(head.ola_constants(n_fft, hop, T_, torch.device("cpu"))[1]) \
+        == out_len + n_fft
+
+
+def test_adain_conv_bf16_wrapper_refuses_what_the_kernel_cannot_take():
+    """Row 6's bf16 shape rule (``_check_sm90``): K 5, halo <= 18, C % 16,
+    C_out % 256, scale and shift of one kind."""
+    sc = torch.zeros(2, 4, 512)
+    ok = torch.zeros(5, 512, 512)
+    ac._check_sm90(sc, sc, ok, 9)
+    ac._check_sm90(sc[:, 0], sc[:, 0], ok, 1)
+    for s1, s2, w, d in ((sc, sc, ok, 11), (sc, sc, torch.zeros(7, 512, 512), 1),
+                         (sc, sc, torch.zeros(3, 512, 512), 1),
+                         (sc, sc, torch.zeros(5, 8, 512), 1),
+                         (sc, sc, torch.zeros(5, 512, 128), 1),
+                         (sc, sc[:, 0], ok, 1)):
+        with pytest.raises(ValueError):
+            ac._check_sm90(s1, s2, w, d)
