@@ -10,10 +10,10 @@ Phases, one line each with its seconds:
   2. build      — compiles ``styletts_zs_torch/csrc/*.cu``, one nvcc per
                   source, all started together (``-Xptxas -v`` register,
                   shared-memory and spill lines printed, and any wgmma
-                  serialisation ptxas reports; for the bf16 kernels built
-                  on ``sm90.cuh`` — rows 1 and 2 (``attention_fwd_sm90.cuh``),
-                  4, 5, 6, 10 and 12 — their dynamic shared memory and
-                  blocks per SM);
+                  serialisation ptxas reports; for the kernels built on
+                  ``sm90.cuh`` — rows 1 and 2 (``attention_fwd_sm90.cuh``;
+                  row 2's fp32 kernel beside it), 4, 5, 6, 7, 10 and 12 —
+                  their dynamic shared memory and blocks per SM);
   3. kernels    — each hand-written kernel against its plain PyTorch
                   version at the main paths' shapes, fp32 and bf16, masked
                   and unmasked, with kernel / plain / library times from
@@ -25,8 +25,10 @@ Phases, one line each with its seconds:
                   vocoder's (B, C, T)-major view) at the long-form and the
                   1-step batch-32 shapes, chunk-local attention
                   also at 256 and 512 frames (the first through the
-                  full-attention kernel), full attention in bf16 also at
-                  Tk 272 with the denoiser's mask and Tq 50 and 16, and
+                  full-attention kernel), full attention in fp32 at the
+                  denoiser's cross- and self-attention (both timed) and in
+                  bf16 also at Tk 272 with the denoiser's mask and Tq 50
+                  and 16, and
                   the cuDNN kernels that the library calls of the two convs
                   launch;
   4. main path  — zero-shot 1-step synthesis with the vocoder at full width
@@ -88,9 +90,9 @@ phase 1.  It imports nothing of JAX.
     python3 chip_smoke.py --against build/parent
 
 runs phases 1 and 2 and then only times every row (1-7, 10 and 12 in
-bf16; 8, 9 and 11 in fp32), at every shape the paths launch them,
-against the kernels of
-another tree unpacked at that directory (``git archive <commit> | tar -x
+bf16; 2 also in fp32 at the denoiser's two shapes; 8, 9 and 11 in fp32),
+at every shape the paths launch them, against the kernels of another
+tree unpacked at that directory (``git archive <commit> | tar -x
 -C build/parent``; its ``kernels/build.py`` builds them into its own
 ``build/``), each through its own tree's C entry point and held against
 the plain version, in turns (parent, this, this, parent), after both
@@ -99,10 +101,10 @@ kernels.
 
     python3 chip_smoke.py --paths-against build/parent
 
-runs phases 1 and 2 and then the 1-step, long-form and serving phases
-(4, 5, 8, 9, 12 without its 4096-request, vocoder and parity runs, and 13)
-of that tree and of this one in turns, each in its own process from its
-own root.
+runs phases 1 and 2 and then the 1-step, multi-step, long-form and
+serving phases (4, 5, 6 without its parity run, 7, 8, 9, 12 without its
+4096-request, vocoder and parity runs, and 13) of that tree and of this
+one in turns, each in its own process from its own root.
 """
 from __future__ import annotations
 
@@ -422,9 +424,10 @@ def phase_device() -> str:
 def phase_build() -> build.KernelLibrary:
     """Build the library and print each kernel's ``-Xptxas -v`` lines (entry,
     registers, spills); for the bf16 forwards of rows 1 and 2
-    (``attention_fwd_sm90.cuh``), the bf16 backward of rows 4 and 5 and the
-    bf16 kernels of rows 6, 10 and 12, their dynamic shared memory a block
-    and blocks per SM from the occupancy API."""
+    (``attention_fwd_sm90.cuh``) and row 2's fp32 kernel, the bf16 backward
+    of rows 4 and 5 and the bf16 kernels of rows 6, 7, 10 and 12, their
+    dynamic shared memory a block and blocks per SM from the occupancy
+    API."""
     lib = build.library()
     print(f"built {lib.path.name} in {lib.build_seconds:.1f} s "
           f"({len(build.sources())} sources and {len(build.headers())} "
@@ -439,8 +442,12 @@ def phase_build() -> build.KernelLibrary:
              lib.lib.local_attention_fwd_occupancy, ()),
             ("attn_fwd_sm90_kernel row 2 bf16 at Tk 256",
              lib.lib.full_attention_fwd_occupancy, (256,)),
+            ("full_attn_f32_sm90_kernel row 2 fp32 at Tk 272",
+             lib.lib.full_attention_f32_occupancy, (272,)),
             ("adain_conv_sm90_kernel row 6 bf16",
              lib.lib.adain_conv_fwd_occupancy, ()),
+            ("adain_bwd_data_sm90_kernel row 7 bf16",
+             lib.lib.adain_conv_bwd_data_occupancy, ()),
             ("conv_transpose_sm90_kernel row 10 bf16",
              lib.lib.conv_transpose_fwd_occupancy, ()),
             ("synth_head_sm90_kernel row 12 bf16",
@@ -799,17 +806,18 @@ def _full_attention_work(q, k, mask):
     """Bytes and matmul FLOPs the function needs.  Per batch row: K and V
     for its valid keys and Q for its queries; a row with no valid key
     averages all Tk values, so it reads V alone and needs no product.  The
-    mask read once, out written once; QK^T and PV over the (query, valid
-    key) pairs.  The bf16 kernel walks the key tiles
+    mask (if any) read once, out written once; QK^T and PV over the (query,
+    valid key) pairs.  The kernel walks the key tiles
     ``fa_kernel.valid_key_tiles`` names, which hold every one of these
     keys."""
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
-    n_valid = mask.sum(-1).cpu()
+    n_valid = (torch.full((B,), Tk) if mask is None else mask.sum(-1).cpu())
     has_key = n_valid > 0
     rows = (Tq * int(has_key.sum()) + 2 * int(n_valid.sum())
             + Tk * int((~has_key).sum()) + B * Tq)
-    n_bytes = rows * H * D * q.element_size() + mask.numel()
+    n_bytes = (rows * H * D * q.element_size()
+               + (0 if mask is None else mask.numel()))
     return n_bytes, 4 * H * D * Tq * int(n_valid.sum())
 
 
@@ -818,8 +826,9 @@ def _time_full_attention(q, k, v, mask, label: str, card: str) -> dict:
     plain_ms = cuda_ms(lambda: fa_kernel.full_attention_plain(q, k, v, mask),
                        iters=5)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa_mask = None if mask is None else mask[:, None, None, :]
     library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask[:, None, None, :]), iters=5)
+        qt, kt, vt, attn_mask=sdpa_mask), iters=5)
     rate = FP32_FLOP_PER_S if q.dtype == torch.float32 else BF16_FLOP_PER_S
     n_bytes, flops = _full_attention_work(q, k, mask)
     bms, by = bound_ms(n_bytes, flops, rate)
@@ -834,12 +843,14 @@ def _time_full_attention(q, k, v, mask, label: str, card: str) -> dict:
 
 def check_full_attention(card: str) -> dict:
     """The denoiser's self- and cross-attention (fp32, B 64 = the doubled
-    batch 32, K 50 codes, 256 text + 16 prompt keys) and the encoders'
-    (bf16, batch 32: text 256, prompt 240 and its 16-query pooling); and in
-    bf16 the ragged edges and the mask policy of the Hopper kernel: Tk 272
-    with the denoiser's [text | padding | prompt] mask, a text length of 0
-    and a row with no valid key, at Tq 50 and 16.  The bf16 encoders' shapes
-    are timed beside the fp32 cross-attention."""
+    batch 32, K 50 codes, 256 text + 16 prompt keys; masked with a text
+    length of 0 and a row with no valid key, and the self-attention also
+    unmasked) and the encoders' (bf16, batch 32: text 256, prompt 240 and
+    its 16-query pooling); and in bf16 the ragged edges and the mask policy
+    of the Hopper kernel: Tk 272 with the denoiser's [text | padding |
+    prompt] mask, a text length of 0 and a row with no valid key, at Tq 50
+    and 16.  The fp32 cross- and self-attention and the bf16 encoders'
+    shapes are timed."""
     g = torch.Generator(device="cuda").manual_seed(3)
     cases = {
         "den_cross": (64, 50, 272, torch.float32, dict(n_prompt=16)),
@@ -871,6 +882,9 @@ def check_full_attention(card: str) -> dict:
         check_close("attention_no_valid_key", label, torch.bfloat16, out,
                     mean)
     res = _time_full_attention(*inputs["den_cross"], "fp32 den_cross", card)
+    # the denoiser's self-attention runs unmasked
+    res["fp32_den_self"] = _time_full_attention(*inputs["den_self"][:3], None,
+                                                "fp32 den_self", card)
     for label in ("text", "prompt", "pool"):
         res[f"bf16_{label}"] = _time_full_attention(*inputs[label],
                                                     f"bf16 {label}", card)
@@ -1878,7 +1892,9 @@ def multistep_config() -> Config:
     return dataclasses.replace(bench_config(), serve=serve)
 
 
-def phase_multistep(card: str) -> dict:
+def phase_multistep(card: str, light: bool = False) -> dict:
+    """Acceptance config 3 on the card; unless ``light``, then fp32 on the
+    card against fp32 on the CPU at batch 2."""
     cfg = multistep_config()
     m, sv = cfg.model, cfg.serve
     params = init_params(cfg, seed=0, device="cpu")
@@ -1910,6 +1926,10 @@ def phase_multistep(card: str) -> dict:
     print(f"  kernel launches per call: "
           f"{ {k: n / n_calls for k, n in r['counts'].items()} } (counted "
           f"{r['counts']} in {n_calls} calls; expected {r['per_call']})")
+    res = {"counts": r["counts"], "n_calls": n_calls, "fn": fn,
+           "inputs": inputs}
+    if light:
+        return res
     # fp32 on the card (the kernels) against fp32 on the CPU (the plain
     # versions), the same weights and inputs, batch 2 with the second text
     # shorter than the text, so the denoiser's cross-attention mask is
@@ -1946,8 +1966,7 @@ def phase_multistep(card: str) -> dict:
     if not mel_err <= FP32_PATH_TOL:
         raise AssertionError(f"fp32 multi-step card path vs CPU: mel "
                              f"{mel_err}")
-    return {"counts": r["counts"], "n_calls": n_calls, "fn": fn,
-            "inputs": inputs}
+    return res
 
 
 def longform_config() -> Config:
@@ -2571,13 +2590,15 @@ def _launch_local(lib, q, k, v, lengths, chunk: int) -> torch.Tensor:
 
 
 def _launch_full(lib, q, k, v, mask) -> torch.Tensor:
-    """``full_attention_fwd`` of ``lib`` on bf16 CUDA q/k/v views."""
+    """``full_attention_fwd`` of ``lib`` on fp32 or bf16 CUDA q/k/v views."""
     B, Tq, H, D = q.shape
     out = torch.empty(B, Tq, H, D, dtype=q.dtype, device=q.device)
     build.check(lib.full_attention_fwd(
-        1, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+        int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), None if mask is None else mask.data_ptr(),
         out.data_ptr(), B, Tq, k.shape[1], H, D,
-        *[st for x in (q, k, v) for st in x.stride()[:3]], mask.stride(0),
+        *[st for x in (q, k, v) for st in x.stride()[:3]],
+        0 if mask is None else mask.stride(0),
         D ** -0.5, torch.cuda.current_stream().cuda_stream),
         "full_attention_fwd")
     return out
@@ -2749,22 +2770,26 @@ def _kernel_name(mangled: str) -> str:
 
 def _print_resources(who: str, lib: build.KernelLibrary) -> None:
     """Registers, spills and static shared memory of the bf16 kernels of
-    rows 1-7, 10 and 12 from a library's ``-Xptxas -v`` log; blocks per SM
-    of rows 4, 5, 6 and 12 where the library reports them."""
+    rows 1-7, 10 and 12 and row 2's fp32 kernel from a library's
+    ``-Xptxas -v`` log; blocks per SM of rows 2 (fp32, at Tk 272), 4, 5, 6,
+    7 and 12 where the library reports them."""
     entry = ""
     for line in lib.log.splitlines():
         if "Compiling entry" in line:
             entry = _kernel_name(line.split()[-3].strip("'"))
-        if any(k in entry for k in ("attn_fwd", "conv_transpose", "dq_tc",
-                                    "dkv_tc", "dq_sm90", "dkv_sm90",
+        if any(k in entry for k in ("attn_fwd", "full_attn", "conv_transpose",
+                                    "dq_tc", "dkv_tc", "dq_sm90", "dkv_sm90",
                                     "adain_conv_tc", "adain_conv_sm90",
-                                    "synth_head")) and (
+                                    "adain_bwd_data", "synth_head")) and (
                 "Used" in line or "spill" in line):
             print(f"    {who} {entry}: {line.strip()}")
     blocks, smem = ctypes.c_int(), ctypes.c_int()
-    for label, name, args in (("row 4", "local_attention_bwd_occupancy", (0,)),
+    for label, name, args in (("row 2 fp32", "full_attention_f32_occupancy",
+                               (272,)),
+                              ("row 4", "local_attention_bwd_occupancy", (0,)),
                               ("row 5", "local_attention_bwd_occupancy", (1,)),
                               ("row 6", "adain_conv_fwd_occupancy", ()),
+                              ("row 7", "adain_conv_bwd_data_occupancy", ()),
                               ("row 12", "synthesis_head_fwd_occupancy", ())):
         occupancy = getattr(lib.lib, name, None)
         if occupancy is None:
@@ -2774,20 +2799,19 @@ def _print_resources(who: str, lib: build.KernelLibrary) -> None:
         occupancy.argtypes = [ctypes.c_int] * len(args) + [ctypes.c_void_p] * 2
         build.check(occupancy(*args, ctypes.byref(blocks),
                               ctypes.byref(smem)), name)
-        print(f"    {who} {label} bf16: {smem.value} bytes of dynamic "
+        print(f"    {who} {label}: {smem.value} bytes of dynamic "
               f"shared memory a block, {blocks.value} blocks per SM")
 
 
 def phase_against_parent(parent: str, card: str) -> dict:
-    """Rows 1-7, 10 and 12 in bf16 and rows 8, 9 and 11 in fp32 at every
-    shape the paths launch them (row 6 with time-varying style at each
-    dilation and with global style at d 1; row 12 on the vocoder's (B, C,
-    T)-major view,
-    which a parent without the strided entry point is given as a
-    contiguous copy, timed with the copy): this tree's kernels against
-    those of the tree unpacked at ``parent``, both held against the plain
-    version, then timed in turns (parent, this, this, parent) on the same
-    inputs."""
+    """Rows 1-7, 10 and 12 in bf16 and rows 2 (the denoiser's), 8, 9 and 11
+    in fp32 at every shape the paths launch them (row 6 with time-varying
+    style at each dilation and with global style at d 1; row 12 on the
+    vocoder's (B, C, T)-major view, which a parent without the strided
+    entry point is given as a contiguous copy, timed with the copy): this
+    tree's kernels against those of the tree unpacked at ``parent``, both
+    held against the plain version, then timed in turns (parent, this,
+    this, parent) on the same inputs."""
     old = _parent_library(Path(parent).resolve())
     new = build.library()
     print(f"  parent library {old.path} (built in {old.build_seconds:.1f} "
@@ -2815,6 +2839,17 @@ def phase_against_parent(parent: str, card: str) -> dict:
         cases.append((f"row 2 {label} B{B} Tq{Tq} Tk{Tk}", _launch_full,
                       (q, k, v, mask),
                       fa_kernel.full_attention_plain(q, k, v, mask)))
+    for label, (B, Tq, Tk, kw) in {
+            "den_cross": (64, 50, 272, dict(n_prompt=16)),
+            "den_self": (64, 50, 50, dict(self_attn=True))}.items():
+        q, k, v, mask = _full_attention_inputs(B, Tq, Tk, torch.float32, g,
+                                               **kw)
+        if label == "den_self":      # the path's self-attention: no mask
+            mask = None
+        cases.append((f"row 2 fp32 {label} B{B} Tq{Tq} Tk{Tk}", _launch_full,
+                      (q, k, v, mask),
+                      fa_kernel.full_attention_plain(q, k, v, mask),
+                      torch.float32))
     q, k, v, lengths = _attention_inputs(torch.bfloat16, True, g, T=chunk)
     mask = length_mask(lengths, chunk)
     cases.append((f"row 2 serve bucket decoder B32 T{chunk} masked",
@@ -2925,9 +2960,9 @@ def phase_against_parent(parent: str, card: str) -> dict:
     return res
 
 
-# One tree's 1-step, long-form and serving phases with their profiles, run
-# from that tree's root (``--paths-against``); a tree whose phase_serve has
-# no ``light`` option runs it whole.
+# One tree's 1-step, multi-step, long-form and serving phases with their
+# profiles, run from that tree's root (``--paths-against``); a tree whose
+# phase_multistep or phase_serve has no ``light`` option runs it whole.
 _PATHS_IN_TURNS = """
 import inspect
 import chip_smoke as cs
@@ -2935,6 +2970,9 @@ card = cs.phase_device()
 cs.phase_build()
 m = cs.phase_main_path(card)
 cs.phase_profile(m["fn"], m["inputs32"], card, "1-step batch 32")
+light = "light" in inspect.signature(cs.phase_multistep).parameters
+ms = cs.phase_multistep(card, **({"light": True} if light else {}))
+cs.phase_profile(ms["fn"], ms["inputs"], card, "multi-step batch 32")
 lf = cs.phase_longform(card)[4864]
 cs.phase_profile(lf["fn"], lf["inputs"], card, "long-form batch 4 x 4864")
 light = "light" in inspect.signature(cs.phase_serve).parameters
@@ -2946,10 +2984,10 @@ cs.phase_profile(lambda: server.serve_batch(reqs), (), card,
 
 
 def phase_paths_against_parent(parent: str) -> None:
-    """The 1-step (batch 1 and 32), long-form and serving (256 requests)
-    phases, with their profiles, of the tree unpacked at ``parent`` and of
-    this one in turns (parent, this, this, parent), each in its own
-    process from its own root, on one card."""
+    """The 1-step (batch 1 and 32), multi-step, long-form and serving (256
+    requests) phases, with their profiles, of the tree unpacked at
+    ``parent`` and of this one in turns (parent, this, this, parent), each
+    in its own process from its own root, on one card."""
     for who, root in (("parent", parent), ("this", REPO), ("this", REPO),
                       ("parent", parent)):
         print(f"== {who}: {Path(root).resolve()}", flush=True)
@@ -3022,9 +3060,9 @@ def main() -> None:
                     help="only time the twelve rows' kernels against the "
                          "kernels of the tree unpacked at DIR, in turns")
     ap.add_argument("--paths-against", metavar="DIR",
-                    help="only run the 1-step, long-form and serving "
-                         "phases of the tree unpacked at DIR and of this "
-                         "one, in turns")
+                    help="only run the 1-step, multi-step, long-form and "
+                         "serving phases of the tree unpacked at DIR and of "
+                         "this one, in turns")
     args = ap.parse_args()
     with phase("device"):
         card = phase_device()

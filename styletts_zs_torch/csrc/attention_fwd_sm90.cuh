@@ -4,6 +4,8 @@
 // (csrc/full_attention.cu, row 2).  Each source includes this header and
 // instantiates attn_fwd_sm90_kernel with its mask policy and lse flag; the
 // policies live here too, so that the one core is written and read once.
+// Row 2's fp32 kernel (full_attention.cu, 3xTF32) takes KeyMaskPolicy,
+// online_softmax and uniform_weights from here as well.
 //
 // What it computes, for one (64-query tile, head, batch) per block: the
 // online softmax of q.k * D^-0.5 over the key tiles the policy walks, in

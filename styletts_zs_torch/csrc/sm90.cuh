@@ -1,13 +1,15 @@
 // Hopper (sm_90a) building blocks shared by the kernels that feed wgmma from
 // shared memory filled by TMA: csrc/attention_fwd_sm90.cuh (rows 1-3),
-// csrc/local_attention_bwd.cu (rows 4-5), csrc/adain_conv.cu (row 6),
+// csrc/local_attention_bwd.cu (rows 4-5), csrc/full_attention.cu (row 2's
+// fp32 variant), csrc/adain_conv.cu (row 6), csrc/adain_conv_bwd.cu (row 7),
 // csrc/conv_transpose.cu (row 10) and csrc/synthesis_head.cu (row 12).  PTX
 // wrappers for shared-memory addresses, mbarriers, TMA tile and bulk loads
 // and wgmma's fences and groups, the wgmma shared-memory descriptor, the
 // driver's tensor-map encoder found through the runtime (so the library
 // links without -lcuda), the products (m64n64k16 for the attention kernels,
-// m64n256k16 for row 6, m64n80k16 for row 12), and the attention kernels'
-// (B, T, H, 64) tile maps and exp2.
+// m64n64k8 in TF32 for row 2's fp32 variant, m64n256k16 for rows 6 and 7,
+// m64n80k16 for row 12), the TF32 split, and the attention kernels'
+// (B, T, H, 64) tile maps (bf16 and fp32) and exp2.
 
 #pragma once
 
@@ -229,15 +231,54 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
+// d (+)= A B, m64n64k8 in TF32 with fp32 accumulation: A from registers
+// (four tf32 values a thread: a0 row r, column c; a1 row r + 8, column c;
+// a2 row r, column c + 4; a3 row r + 8, column c + 4; r = 16 warp + lane/4,
+// c = lane % 4), B K-major in shared memory (TF32 has no transpose bit).
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint32_t a0,
+                                           uint32_t a1, uint32_t a2,
+                                           uint32_t a3, uint64_t db,
+                                           int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " SM90_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : SM90_D32_OPS(d)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
+}
+
 #undef SM90_D32
 #undef SM90_D32_OPS
 
-// d (+)= A B, m64n256k16: A K-major, B MN-major (the transpose bit), both in
-// shared memory; 128 fp32 accumulators a thread.  With accumulate 0 the
-// product defines d, so no other instruction need write it first (ptxas
-// serialises wgmma whose accumulators other instructions define).
-__device__ __forceinline__ void wgmma_n256_kmn(float (&d)[128], uint64_t da,
-                                              uint64_t db, int accumulate) {
+// x rounded to the nearest TF32 value (ties away from zero): its bits, the
+// low 13 of them 0.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// The 3xTF32 split: x = hi + lo + e, hi and lo TF32 values, |lo| <= 2^-11
+// |x| and |e| <= 2^-22 |x|; a product x y is then hi_x hi_y + hi_x lo_y +
+// lo_x hi_y to about fp32's precision (the dropped lo_x lo_y is below
+// 2^-22 |x y|).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// d (+)= A B, m64n256k16: A K-major, B MN-major (kTransB 1, the transpose
+// bit) or K-major (0), both in shared memory; 128 fp32 accumulators a
+// thread.  With accumulate 0 the product defines d, so no other instruction
+// need write it first (ptxas serialises wgmma whose accumulators other
+// instructions define).
+template <int kTransB>
+__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da,
+                                           uint64_t db, int accumulate) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -259,7 +300,7 @@ __device__ __forceinline__ void wgmma_n256_kmn(float (&d)[128], uint64_t da,
       "%104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, "
       "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 1;\n"
+      "}, %128, %129, p, 1, 1, 0, %131;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -283,7 +324,19 @@ __device__ __forceinline__ void wgmma_n256_kmn(float (&d)[128], uint64_t da,
         "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
         "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(accumulate));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(kTransB));
+}
+
+// Row 6: B (the weight, output channels contiguous) MN-major.
+__device__ __forceinline__ void wgmma_n256_kmn(float (&d)[128], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  wgmma_n256<1>(d, da, db, accumulate);
+}
+
+// Row 7: B (the weight read as (c, o) rows, o contiguous) K-major.
+__device__ __forceinline__ void wgmma_n256_kk(float (&d)[128], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  wgmma_n256<0>(d, da, db, accumulate);
 }
 
 // d += A B, m64n80k16: A and B K-major in shared memory; 40 fp32
@@ -334,41 +387,53 @@ inline PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dimensions (innermost first, contiguous),
-// byte strides of the outer ones, read in boxes of `box` elements with the
-// given swizzle; zero fill outside the tensor.
-inline bool encode_bf16(CUtensorMap* map, const void* ptr, int rank,
-                 const cuuint64_t* dims, const cuuint64_t* byte_strides,
-                 const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+// A tensor map of `rank` dimensions (innermost first, contiguous) of
+// `type`, byte strides of the outer ones, read in boxes of `box` elements
+// with the given swizzle; zero fill outside the tensor.
+inline bool encode_tiled(CUtensorMap* map, CUtensorMapDataType type,
+                         const void* ptr, int rank, const cuuint64_t* dims,
+                         const cuuint64_t* byte_strides, const cuuint32_t* box,
+                         CUtensorMapSwizzle swizzle) {
   PFN_cuTensorMapEncodeTiled_v12000 encode = encode_fn();
   if (encode == nullptr) return false;
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-                const_cast<void*>(ptr), dims, byte_strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+  return encode(map, type, rank, const_cast<void*>(ptr), dims, byte_strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// A (D, T, H, B) bf16 tensor map of a (B, T, H, 64) view with element
-// strides st[0..2] = (b, t, h), read in 64 x 64 boxes with 128-byte
-// swizzle.  A dimension of extent 1 gets its contiguous stride (its own is
-// never used).
+inline bool encode_bf16(CUtensorMap* map, const void* ptr, int rank,
+                 const cuuint64_t* dims, const cuuint64_t* byte_strides,
+                 const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, rank, dims,
+                      byte_strides, box, swizzle);
+}
+
+// A (D, T, H, B) tensor map of a (B, T, H, 64) view with element strides
+// st[0..2] = (b, t, h), read in boxes of 64 rows with 128-byte swizzle: bf16
+// 64 wide (one 128-byte swizzle row), fp32 32 wide (a row is two boxes, at
+// d 0 and 32).  A dimension of extent 1 gets its contiguous stride (its own
+// is never used).
 inline bool encode_view(CUtensorMap* map, const void* ptr, int B, int T,
-                        int H, const long long* st) {
+                        int H, const long long* st, bool fp32 = false) {
   constexpr int kD = 64, kRows = 64;
   const long long sb = B > 1 ? st[0] : static_cast<long long>(T) * H * kD;
   const long long stt = T > 1 ? st[1] : static_cast<long long>(H) * kD;
   const long long sh = H > 1 ? st[2] : kD;
+  const int size = fp32 ? 4 : 2;
   const cuuint64_t dims[4] = {kD, static_cast<cuuint64_t>(T),
                               static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(stt) * 2,
-                                 static_cast<cuuint64_t>(sh) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {kD, kRows, 1, 1};
-  return encode_bf16(map, ptr, 4, dims, strides, box,
-                     CU_TENSOR_MAP_SWIZZLE_128B);
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(stt) * size,
+                                 static_cast<cuuint64_t>(sh) * size,
+                                 static_cast<cuuint64_t>(sb) * size};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(128 / size), kRows, 1,
+                             1};
+  return encode_tiled(map,
+                      fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                      ptr, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace sm90

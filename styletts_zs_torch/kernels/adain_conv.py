@@ -145,6 +145,23 @@ def _check_sm90(scale, shift, w, dilation: int) -> None:
             f"scale {tuple(scale.shape)}, shift {tuple(shift.shape)}")
 
 
+def _check_sm90_bwd(scale, shift, w, dilation: int) -> None:
+    """Raise on a bf16 pass whose backward-data row 7's kernel
+    (``adain_bwd_data_sm90_kernel``) does not take: a block owns
+    SM90_FRAMES frames x SM90_CHANNELS input channels c and walks the
+    output channels o SM90_CK at a time, for the decoder's SM90_K taps and
+    a halo of at most SM90_MAX_HALO frames."""
+    K, C, C_out = w.shape
+    if K != SM90_K or (K - 1) * dilation // 2 > SM90_MAX_HALO or \
+            C_out % SM90_CK or C % SM90_CHANNELS or scale.ndim != shift.ndim:
+        raise ValueError(
+            f"bf16 backward-data needs K {SM90_K}, a halo of at most "
+            f"{SM90_MAX_HALO} frames, C_out % {SM90_CK} == 0, C % "
+            f"{SM90_CHANNELS} == 0 and scale, shift both per-frame or both "
+            f"global; got w {tuple(w.shape)}, dilation {dilation}, "
+            f"scale {tuple(scale.shape)}, shift {tuple(shift.shape)}")
+
+
 def _bt_strides(s):
     """(b, t) strides of a (B, T, C) tensor or a (B, C) one (t stride 0)."""
     return s.stride(0), (s.stride(1) if s.ndim == 3 else 0)
@@ -237,14 +254,16 @@ def adain_conv_bwd_data_cuda(dc, x, scale, shift, mean, rstd, w, *,
     """Launch row 7 (``csrc/adain_conv_bwd.cu``) on the current stream.
 
     dc (B, T, C_out), made contiguous; x, scale, shift, mean, rstd and w as
-    ``adain_conv_pass_cuda`` takes them (w (K, C, C_out) read flipped and
-    transposed in place).  Returns dh (B, T, C) in dc's dtype.  Raises on
-    anything the kernel does not take.
+    ``adain_conv_pass_cuda`` takes them (w (K, C, C_out) read flipped in
+    place; bf16: ``_check_sm90_bwd``'s shapes).  Returns dh (B, T, C) in
+    dc's dtype.  Raises on anything the kernel does not take.
     """
     global bwd_data_launches
     B, T, C = x.shape
     K, _, C_out = w.shape
     _check_pass(x, scale, shift, mean, rstd, w, dilation)
+    if x.dtype == torch.bfloat16:
+        _check_sm90_bwd(scale, shift, w, dilation)
     dc = dc.contiguous()
     if dc.shape != (B, T, C_out) or dc.dtype != x.dtype or \
             dc.device != x.device:

@@ -85,13 +85,15 @@ _SIGNATURES = {
     "conv_transpose_fwd": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L,
                            _L, _I, _F, _P],
     # blocks per SM and dynamic shared memory per block (int pointers) of
-    # the bf16 kernels of rows 1, 6, 10, 12, 2 (the latter at Tk keys) and
-    # 4 or 5 (0 or 1)
+    # the bf16 kernels of rows 1, 6, 7, 10, 12, 2 and row 2's fp32 kernel
+    # (the latter two at Tk keys) and 4 or 5 (0 or 1)
     "local_attention_fwd_occupancy": [_P, _P],
     "adain_conv_fwd_occupancy": [_P, _P],
+    "adain_conv_bwd_data_occupancy": [_P, _P],
     "conv_transpose_fwd_occupancy": [_P, _P],
     "synthesis_head_fwd_occupancy": [_P, _P],
     "full_attention_fwd_occupancy": [_I, _P, _P],
+    "full_attention_f32_occupancy": [_I, _P, _P],
     "local_attention_bwd_occupancy": [_I, _P, _P],
 }
 

@@ -24,14 +24,15 @@ from styletts_zs_torch.ops.attention import NEG_INF
 launches = 0   # CUDA kernel launches; ``full_attention_cuda`` adds one each
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ELEMS_16B = {torch.float32: 4, torch.bfloat16: 8}   # elements in 16 bytes
 
 
 def valid_key_tiles(mask_row, Tk: int, tile: int = 64) -> list[int]:
-    """The key tiles (indices of ``tile`` keys) the bf16 kernel walks for a
-    batch row with key mask ``mask_row`` (Tk,) or None: the tiles that hold
-    a valid key, whose probabilities alone are not exactly 0; or, when the
-    row has no valid key, every tile, all keys at equal weight (the kernel
-    then needs no scores: P.V alone)."""
+    """The key tiles (indices of ``tile`` keys) the kernel walks, fp32 and
+    bf16 alike, for a batch row with key mask ``mask_row`` (Tk,) or None:
+    the tiles that hold a valid key, whose probabilities alone are not
+    exactly 0; or, when the row has no valid key, every tile, all keys at
+    equal weight (the kernel then needs no scores: P.V alone)."""
     n = -(-Tk // tile)
     if mask_row is None:
         return list(range(n))
@@ -55,35 +56,45 @@ def full_attention_plain(q, k, v, mask=None) -> torch.Tensor:
     return out.to(q.dtype)
 
 
+def check_layout(name: str, t: torch.Tensor) -> None:
+    """Raise ``ValueError`` unless the kernel's TMA can read ``t``'s rows: a
+    contiguous last dimension, a 16-byte aligned pointer and (b, t, h)
+    strides in multiples of 16 bytes (4 fp32 or 8 bf16 elements; the
+    denoiser's fp32 views of its fused projections have row strides of
+    1536 and 1024).  Reads the dtype, strides and address only, so it runs
+    on any device."""
+    elems = _ELEMS_16B.get(t.dtype)
+    if elems is None:
+        raise ValueError(f"{name}: dtype {t.dtype} not supported")
+    sb, st, sh, sd = t.stride()
+    if sd != 1:
+        raise ValueError(f"{name}: last dimension must be contiguous")
+    if t.data_ptr() % 16 or sb % elems or st % elems or sh % elems:
+        raise ValueError(f"{name}: {str(t.dtype)[6:]} needs a 16-byte "
+                         f"aligned pointer and strides in multiples of "
+                         f"{elems}, got {t.stride()}")
+
+
 def full_attention_cuda(q, k, v, mask=None) -> torch.Tensor:
     """Launch ``csrc/full_attention.cu`` on the current stream.
 
     q (B, Tq, H, D), k/v (B, Tk, H, D): CUDA tensors of one dtype (fp32 or
-    bf16), last dimension contiguous, any strides elsewhere (bf16: 16-byte
-    aligned pointers and strides in multiples of 8, as the views of the
-    model's fused projections are); mask (B, Tk) bool with a contiguous
-    last dimension, or None.  The kernel takes D = 64 and raises on
-    anything else.
+    bf16), last dimension contiguous, rows on 16 bytes (``check_layout``:
+    the views of the model's fused projections are); mask (B, Tk) bool
+    with a contiguous last dimension, or None.  The kernel takes D = 64 and
+    raises on anything else.
     """
     global launches
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
     for name, t in (("q", q), ("k", k), ("v", v)):
+        check_layout(name, t)
         if not t.is_cuda or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{name}: need a CUDA tensor like q, got "
                              f"{t.device} {t.dtype}")
-        if t.stride(-1) != 1:
-            raise ValueError(f"{name}: last dimension must be contiguous")
-        if t.dtype == torch.bfloat16 and (
-                t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3])):
-            raise ValueError(f"{name}: bf16 needs a 16-byte aligned pointer "
-                             f"and strides in multiples of 8, got "
-                             f"{t.stride()}")
     if k.shape != (B, Tk, H, D) or v.shape != k.shape:
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
                          f"fit q {tuple(q.shape)}")
-    if q.dtype not in _DTYPES:
-        raise ValueError(f"dtype {q.dtype} not supported")
     if D != 64:
         raise ValueError(f"the kernel takes D=64, got D={D}")
     m_ptr, m_sb = None, 0
