@@ -12,8 +12,8 @@ Phases, one line each with its seconds:
                   shared-memory and spill lines printed, and any wgmma
                   serialisation ptxas reports; for the kernels built on
                   ``sm90.cuh`` — rows 1 and 2 (``attention_fwd_sm90.cuh``;
-                  row 2's fp32 kernel beside it), 4, 5, 6, 7, 10 and 12 —
-                  their dynamic shared memory and blocks per SM);
+                  row 2's fp32 kernel beside it), 4, 5, 6, 7, 10, 11 and
+                  12 — their dynamic shared memory and blocks per SM);
   3. kernels    — each hand-written kernel against its plain PyTorch
                   version at the main paths' shapes, fp32 and bf16, masked
                   and unmasked, with kernel / plain / library times from
@@ -78,9 +78,12 @@ forward with its log-sum-exp and the dq, dk/dv backward, with the
 cotangent zeroed past the length as the decoder does and live there, and
 the count of tile pairs each kind of the bf16 walk meets; row 7: the AdaIN
 conv backward-data) against their plain versions at the train step's
-shapes, and row 11, the standalone iSTFT, at the vocoder head's two
-shapes; right after it, row 11's one entry point (``dispatch.istft_head``,
-on no model path) runs with grad on.  After every path on the card no
+shapes, rows 8 and 9 beside the card's launch floor (a one-block
+elementwise op on 4 floats, timed the same way), and row 11, the
+standalone iSTFT, at small shapes (every window and frame-count residue
+its sm90 kernel handles, and the generic kernel's cases) and at the
+vocoder head's two shapes; right after it, row 11's one entry point
+(``dispatch.istft_head``, on no model path) runs with grad on.  After every path on the card no
 plain version has seen a CUDA tensor.
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -425,9 +428,9 @@ def phase_build() -> build.KernelLibrary:
     """Build the library and print each kernel's ``-Xptxas -v`` lines (entry,
     registers, spills); for the bf16 forwards of rows 1 and 2
     (``attention_fwd_sm90.cuh``) and row 2's fp32 kernel, the bf16 backward
-    of rows 4 and 5 and the bf16 kernels of rows 6, 7, 10 and 12, their
-    dynamic shared memory a block and blocks per SM from the occupancy
-    API."""
+    of rows 4 and 5, the bf16 kernels of rows 6, 7, 10 and 12 and row 11's
+    sm90 kernel, their dynamic shared memory a block and blocks per SM from
+    the occupancy API."""
     lib = build.library()
     print(f"built {lib.path.name} in {lib.build_seconds:.1f} s "
           f"({len(build.sources())} sources and {len(build.headers())} "
@@ -455,7 +458,9 @@ def phase_build() -> build.KernelLibrary:
             ("dq_sm90_kernel row 4 bf16",
              lib.lib.local_attention_bwd_occupancy, (0,)),
             ("dkv_sm90_kernel row 5 bf16",
-             lib.lib.local_attention_bwd_occupancy, (1,))):
+             lib.lib.local_attention_bwd_occupancy, (1,)),
+            ("istft_sm90_kernel row 11 fp32 at n_fft 48",
+             lib.lib.istft_sm90_occupancy, (48,))):
         build.check(fn(*args, ctypes.byref(blocks), ctypes.byref(smem)),
                     label)
         print(f"  {label}: {smem.value} bytes of dynamic shared memory a "
@@ -899,6 +904,7 @@ def check_sampler(card: str) -> dict:
     g = torch.Generator(device="cuda").manual_seed(4)
     shape = (32, 50, 128)
     res = {}
+    floor_ms = launch_floor(card)
     for name, i in (("sampler_euler", 0), ("sampler_heun", 14)):
         s_cur, s_next = sig[i], sig[i + 1]
         x = torch.randn(*shape, generator=g, device="cuda") * float(s_cur)
@@ -939,11 +945,25 @@ def check_sampler(card: str) -> dict:
                            FP32_FLOP_PER_S)
         print(f"  {name} {shape} fp32 sigma {s_cur:.4g} -> {s_next:.4g}: "
               f"kernel {ms:.4f} ms (its wrapper's host time {host_ms:.4f} "
-              f"ms), plain {plain_ms:.4f} ms, bound {bms:.5f} ms ({by}); no "
-              f"single library call  [{card}]")
+              f"ms), plain {plain_ms:.4f} ms, bound {bms:.5f} ms ({by}), "
+              f"the card's launch floor {floor_ms:.5f} ms; no single "
+              f"library call  [{card}]")
         res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bms, "bound_by": by, "library_ms": None}
+                     "bound_ms": bms, "bound_by": by, "library_ms": None,
+                     "launch_floor_ms": floor_ms}
     return res
+
+
+def launch_floor(card: str) -> float:
+    """The card's launch floor: device ms of a one-block PyTorch elementwise
+    op on 4 floats, timed as rows 8-9 are (``timed``, 50 launches back to
+    back behind a held stream): what any launch takes, whatever its work."""
+    x = torch.randn(4, device="cuda")
+    y = torch.empty_like(x)
+    ms, host_ms = timed(lambda: torch.mul(x, 2.0, out=y), iters=50)
+    print(f"  launch floor: torch.mul on 4 fp32 values (one block) {ms:.5f} "
+          f"ms (host {host_ms:.4f} ms a launch)  [{card}]")
+    return ms
 
 
 def _sampler_tail(name: str, s_cur, s_next, g) -> float:
@@ -1498,14 +1518,53 @@ def _istft_library(real, imag, n_fft: int, hop: int):
                                window=window, center=True, length=length)
 
 
+# Row 11 at small shapes: every window the sm90 kernel is built for, frame
+# counts of every residue mod 4 and batches whose spectra end on no 16 bytes
+# (the threads load the last floats), slots fewer than the grid (one slot a
+# block: every run starts a row's walk) and more; hop 5 (no divisor of 48:
+# the overlap-add sample by sample), M = 32 (the ring carries 31 frames,
+# all it can), hop 20 > n_fft; then the generic kernel: a window the sm90
+# kernel does not take, M = 48, and spectra that start 4 bytes off 16.
+# (n_fft, hop, B, F, offset in floats)
+_ISTFT_SMALL = (
+    *[(48, 12, B, F, 0) for B in (1, 3)
+      for F in (2, 3, 5, 10, 63, 64, 65, 100, 101, 130, 1027)],
+    *[(16, 4, 3, F, 0) for F in (2, 10, 101, 130, 2051)],
+    *[(n, n // 4, 3, F, 0) for n in (32, 64) for F in (10, 103, 1025)],
+    (48, 5, 3, 101, 0), (32, 1, 2, 300, 0), (64, 2, 2, 300, 0),
+    (16, 20, 3, 50, 0), (20, 5, 3, 101, 0), (48, 1, 2, 300, 0),
+    (48, 12, 3, 101, 1))
+
+
+def _check_istft_small(g) -> float:
+    """Row 11 against its plain version at ``_ISTFT_SMALL``; returns the
+    max abs error."""
+    errs = []
+    for n_fft, hop, B, F, off in _ISTFT_SMALL:
+        n_freq = n_fft // 2 + 1
+        real, imag = (torch.randn(B * F * n_freq + off, generator=g,
+                                  device="cuda")[off:].view(B, F, n_freq)
+                      for _ in range(2))
+        sm90 = (istft_kernel.takes_sm90(n_fft, hop) and
+                real.data_ptr() % 16 == 0 and imag.data_ptr() % 16 == 0)
+        out = istft_kernel.istft_cuda(real, imag, n_fft=n_fft, hop=hop)
+        ref = istft_kernel.istft_plain(real, imag, n_fft=n_fft, hop=hop)
+        torch.cuda.synchronize()
+        errs.append(check_close(
+            "istft", f"n{n_fft}h{hop}B{B}F{F}{'' if sm90 else ' generic'}",
+            torch.float32, out, ref))
+    return max(errs)
+
+
 def check_istft(card: str, n_fft: int = 48, hop: int = 12) -> dict:
-    """Row 11 in fp32 at the vocoder head's geometry and its two shapes:
-    the 1-step head (32 x 25 600 frames: 1024 mel frames x 25) and the
-    long-form head (4 x 121 600); kernel, plain, ``torch.istft`` (when it
-    agrees with the plain version within the tolerance) and the bound."""
+    """Row 11 in fp32 at ``_ISTFT_SMALL``, then at the vocoder head's
+    geometry and its two shapes, where the sm90 kernel runs: the 1-step
+    head (32 x 25 600 frames: 1024 mel frames x 25) and the long-form head
+    (4 x 121 600); kernel, plain, ``torch.istft`` (when it agrees with the
+    plain version within the tolerance) and the bound."""
     g = torch.Generator(device="cuda").manual_seed(9)
     n_freq = n_fft // 2 + 1
-    res, errs = {}, []
+    res, errs = {}, [_check_istft_small(g)]
     for B, F in ((32, 25600), (4, 121600)):
         real, imag = (torch.randn(B, F, n_freq, generator=g, device="cuda")
                       for _ in range(2))
@@ -2713,16 +2772,28 @@ def _launch_heun(lib, x, xe, dc, du, d1, s_cur, s_next,
 
 
 def _launch_istft(lib, real, imag, n_fft: int = 48, hop: int = 12):
-    """``istft_fwd`` of ``lib`` (row 11) on contiguous fp32 CUDA spectra."""
+    """Row 11 of ``lib`` on contiguous fp32 CUDA spectra: ``istft_sm90_fwd``
+    where the library has it, else ``istft_fwd`` (a tree before it)."""
     B, F, _ = real.shape
-    FT, syn_shared = istft_kernel.launch_geometry(n_fft, hop)
-    syn, inv_env = head_kernel.ola_constants(n_fft, hop, F, real.device)
     out = torch.empty(B, (F - 1) * hop, dtype=torch.float32,
                       device=real.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    sm90 = getattr(lib, "istft_sm90_fwd", None)
+    if sm90 is not None:
+        Fc = istft_kernel.envelope_table(n_fft, hop, F)[1]
+        syn, table = istft_kernel.sm90_constants(n_fft, hop, Fc, real.device)
+        grid = min(istft_kernel.sm90_grid(n_fft, real.device),
+                   B * istft_kernel.sm90_slots(n_fft, hop, F)[1])
+        build.check(sm90(real.data_ptr(), imag.data_ptr(), syn.data_ptr(),
+                         table.data_ptr(), out.data_ptr(), B, F, n_fft, hop,
+                         Fc, grid, stream), "istft_sm90_fwd")
+        return out
+    FT, syn_shared = istft_kernel.launch_geometry(n_fft, hop)
+    syn, inv_env = head_kernel.ola_constants(n_fft, hop, F, real.device)
     build.check(lib.istft_fwd(
         real.data_ptr(), imag.data_ptr(), syn.data_ptr(), inv_env.data_ptr(),
-        out.data_ptr(), B, F, n_fft, hop, FT, int(syn_shared),
-        torch.cuda.current_stream().cuda_stream), "istft_fwd")
+        out.data_ptr(), B, F, n_fft, hop, FT, int(syn_shared), stream),
+        "istft_fwd")
     return out
 
 
@@ -2770,9 +2841,9 @@ def _kernel_name(mangled: str) -> str:
 
 def _print_resources(who: str, lib: build.KernelLibrary) -> None:
     """Registers, spills and static shared memory of the bf16 kernels of
-    rows 1-7, 10 and 12 and row 2's fp32 kernel from a library's
-    ``-Xptxas -v`` log; blocks per SM of rows 2 (fp32, at Tk 272), 4, 5, 6,
-    7 and 12 where the library reports them."""
+    rows 1-7, 10 and 12, row 2's fp32 kernel and row 11's kernels from a
+    library's ``-Xptxas -v`` log; blocks per SM of rows 2 (fp32, at Tk
+    272), 4, 5, 6, 7, 12 and 11 (sm90) where the library reports them."""
     entry = ""
     for line in lib.log.splitlines():
         if "Compiling entry" in line:
@@ -2780,7 +2851,8 @@ def _print_resources(who: str, lib: build.KernelLibrary) -> None:
         if any(k in entry for k in ("attn_fwd", "full_attn", "conv_transpose",
                                     "dq_tc", "dkv_tc", "dq_sm90", "dkv_sm90",
                                     "adain_conv_tc", "adain_conv_sm90",
-                                    "adain_bwd_data", "synth_head")) and (
+                                    "adain_bwd_data", "synth_head",
+                                    "istft")) and (
                 "Used" in line or "spill" in line):
             print(f"    {who} {entry}: {line.strip()}")
     blocks, smem = ctypes.c_int(), ctypes.c_int()
@@ -2790,7 +2862,9 @@ def _print_resources(who: str, lib: build.KernelLibrary) -> None:
                               ("row 5", "local_attention_bwd_occupancy", (1,)),
                               ("row 6", "adain_conv_fwd_occupancy", ()),
                               ("row 7", "adain_conv_bwd_data_occupancy", ()),
-                              ("row 12", "synthesis_head_fwd_occupancy", ())):
+                              ("row 12", "synthesis_head_fwd_occupancy", ()),
+                              ("row 11 sm90 at n_fft 48",
+                               "istft_sm90_occupancy", (48,))):
         occupancy = getattr(lib.lib, name, None)
         if occupancy is None:
             print(f"    {who}: {label} blocks per SM not reported by that "

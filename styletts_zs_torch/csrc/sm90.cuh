@@ -2,12 +2,14 @@
 // shared memory filled by TMA: csrc/attention_fwd_sm90.cuh (rows 1-3),
 // csrc/local_attention_bwd.cu (rows 4-5), csrc/full_attention.cu (row 2's
 // fp32 variant), csrc/adain_conv.cu (row 6), csrc/adain_conv_bwd.cu (row 7),
-// csrc/conv_transpose.cu (row 10) and csrc/synthesis_head.cu (row 12).  PTX
+// csrc/conv_transpose.cu (row 10), csrc/istft.cu (row 11) and
+// csrc/synthesis_head.cu (row 12).  PTX
 // wrappers for shared-memory addresses, mbarriers, TMA tile and bulk loads
 // and wgmma's fences and groups, the wgmma shared-memory descriptor, the
 // driver's tensor-map encoder found through the runtime (so the library
 // links without -lcuda), the products (m64n64k16 for the attention kernels,
-// m64n64k8 in TF32 for row 2's fp32 variant, m64n256k16 for rows 6 and 7,
+// m64n64k8 in TF32 for row 2's fp32 variant and m64n{16,32,48,64}k8 for row
+// 11, m64n256k16 for rows 6 and 7,
 // m64n80k16 for row 12), the TF32 split, and the attention kernels'
 // (B, T, H, 64) tile maps (bf16 and fp32) and exp2.
 
@@ -252,6 +254,60 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint32_t a0,
 
 #undef SM90_D32
 #undef SM90_D32_OPS
+
+#define SM90_ACC4(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+
+// The same product at N = 16, 32, 48 or 64 (N / 2 accumulators a thread,
+// laid out as m64n64k8's first N / 2): row 11's inverse DFT, whose B is the
+// n_fft-wide basis.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_n(float (&d)[N / 2], uint32_t a0,
+                                             uint32_t a1, uint32_t a2,
+                                             uint32_t a3, uint64_t db,
+                                             int accumulate) {
+  static_assert(N == 16 || N == 32 || N == 48 || N == 64, "N");
+  if constexpr (N == 64) {
+    wgmma_tf32(d, a0, a1, a2, a3, db, accumulate);
+  } else if constexpr (N == 48) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %29, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, "
+        "{%24, %25, %26, %27}, %28, p, 1, 1;\n"
+        "}\n"
+        : SM90_ACC4(d, 0), SM90_ACC4(d, 4), SM90_ACC4(d, 8), SM90_ACC4(d, 12),
+          SM90_ACC4(d, 16), SM90_ACC4(d, 20)
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
+  } else if constexpr (N == 32) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n"
+        "}\n"
+        : SM90_ACC4(d, 0), SM90_ACC4(d, 4), SM90_ACC4(d, 8), SM90_ACC4(d, 12)
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
+  } else {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1;\n"
+        "}\n"
+        : SM90_ACC4(d, 0), SM90_ACC4(d, 4)
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
+  }
+}
+
+#undef SM90_ACC4
 
 // x rounded to the nearest TF32 value (ties away from zero): its bits, the
 // low 13 of them 0.

@@ -70,6 +70,9 @@ _SIGNATURES = {
     # real, imag, syn, inv_env, out, B, F, n_fft, hop, frames per block,
     # basis in shared memory (0/1), stream
     "istft_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # real, imag, syn, envelope table, out, B, F, n_fft, hop, Fc, grid,
+    # stream
+    "istft_sm90_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, den_cond, den_uncond, x_out, d_out, n, s_cur, s_next - s_cur,
     # guidance, stream
     "sampler_euler_fwd": [_P, _P, _P, _P, _P, _L, _F, _F, _F, _P],
@@ -86,7 +89,8 @@ _SIGNATURES = {
                            _L, _I, _F, _P],
     # blocks per SM and dynamic shared memory per block (int pointers) of
     # the bf16 kernels of rows 1, 6, 7, 10, 12, 2 and row 2's fp32 kernel
-    # (the latter two at Tk keys) and 4 or 5 (0 or 1)
+    # (the latter two at Tk keys), 4 or 5 (0 or 1) and row 11's sm90 kernel
+    # (at n_fft)
     "local_attention_fwd_occupancy": [_P, _P],
     "adain_conv_fwd_occupancy": [_P, _P],
     "adain_conv_bwd_data_occupancy": [_P, _P],
@@ -95,6 +99,7 @@ _SIGNATURES = {
     "full_attention_fwd_occupancy": [_I, _P, _P],
     "full_attention_f32_occupancy": [_I, _P, _P],
     "local_attention_bwd_occupancy": [_I, _P, _P],
+    "istft_sm90_occupancy": [_I, _P, _P],
 }
 
 
