@@ -62,7 +62,24 @@ Phases, one line each with its seconds:
                   equal, every loss term and gradient tensor within its
                   tolerance);
  11. profile    — the same breakdown for one train step;
- 12. serve      — acceptance level 5 at full size (``Server``: batch 32,
+ 12. train_stage2 — the stage-2 style-diffusion step (``Stage2Trainer``) at
+                  batch 16 x 1024 frames, the acoustic model frozen in bf16,
+                  the denoiser fp32 (AdaLN gates drawn from a seed): one
+                  warm-up step, the median of 5, audio-s trained per s,
+                  peak memory, the loss, the launches per step and the twin
+                  backwards; then fp32 on the card against fp32 on the CPU
+                  at batch 2 on the same draws (the loss, every denoiser
+                  gradient, the worst tensor printed);
+ 13. profile    — the same breakdown for one stage-2 step;
+ 14. train_stage3 — the stage-3 distillation step (``Stage3Trainer``: the
+                  16-step teacher at guidance 3 under no_grad, the 1-step
+                  student, both decoded through the frozen bf16 acoustic
+                  model, the student's through rows 3-5 and 7 backward), the
+                  same measures, rows 8-9 16 and 15 times a step; then fp32
+                  card vs CPU at batch 2 with 4 teacher steps (both decodes'
+                  durations equal, the loss terms and gradients gated);
+ 15. profile    — the same breakdown for one stage-3 step;
+ 16. serve      — acceptance level 5 at full size (``Server``: batch 32,
                   buckets of 256, 512 and 1024 frames, 1-step, mel only,
                   bf16): 256 requests (a warm-up call, the median of 5),
                   the contract's 4096 requests once, 256 with the vocoder
@@ -70,8 +87,8 @@ Phases, one line each with its seconds:
                   memory, the launches per call against the bucket plan,
                   the plan against the batches served; then fp32 on the
                   card against fp32 on the CPU at 8 requests;
- 13. profile    — the same breakdown for one 256-request call;
- 14. verify     — the numerics gate, acceptance level 1
+ 17. profile    — the same breakdown for one 256-request call;
+ 18. verify     — the numerics gate, acceptance level 1
                   (``run_verification(max_frames=256, device="cuda")``).
 Phase 3 also holds the training kernels (rows 3-5: the local-attention
 forward with its log-sum-exp and the dq, dk/dv backward, with the
@@ -105,8 +122,8 @@ kernels.
     python3 chip_smoke.py --paths-against build/parent
 
 runs phases 1 and 2 and then the 1-step, multi-step, long-form and
-serving phases (4, 5, 6 without its parity run, 7, 8, 9, 12 without its
-4096-request, vocoder and parity runs, and 13) of that tree and of this
+serving phases (4, 5, 6 without its parity run, 7, 8, 9, 16 without its
+4096-request, vocoder and parity runs, and 17) of that tree and of this
 one in turns, each in its own process from its own root.
 """
 from __future__ import annotations
@@ -150,6 +167,7 @@ from styletts_zs_torch.pipelines.data import SyntheticDataset  # noqa: E402
 from styletts_zs_torch.pipelines.infer import make_synthesis_fn  # noqa: E402
 from styletts_zs_torch.pipelines.serve import Request, Server  # noqa: E402
 from styletts_zs_torch.pipelines.train import (Stage1Trainer,  # noqa: E402
+                                               Stage2Trainer, Stage3Trainer,
                                                batch_to_device)
 from styletts_zs_torch.pipelines.verify import (  # noqa: E402
     _run as run_with_durations, run_verification)
@@ -2152,14 +2170,16 @@ def train_expected_counts(cfg: Config, n_frames: int) -> dict:
 
 
 def drive_train(cfg: Config, trainer, state, batch, *, device,
-                n_steps: int) -> dict:
+                n_steps: int, expect: dict | None = None,
+                label: str = "stage-1 train step") -> dict:
     """``n_steps`` train steps, each timed to its end, with the kernel
     counts set to 0 just before and read just after: every kernel of the
-    step launched as often as expected and no other, the twin backwards as
-    expected, on the card no plain version, every loss finite."""
+    step launched as often as ``expect`` says (by default the stage-1
+    step's counts) and no other, the twin backwards as expected, on the
+    card no plain version, every loss finite."""
     device = torch.device(device)
-    n_frames = batch["f0"].shape[1]
-    expect = train_expected_counts(cfg, n_frames)
+    if expect is None:
+        expect = train_expected_counts(cfg, batch["f0"].shape[1])
     if device.type == "cuda":
         torch.cuda.synchronize()
     times = []
@@ -2173,7 +2193,7 @@ def drive_train(cfg: Config, trainer, state, batch, *, device,
     counts = kernel_counts(device)
     twins = dict(plain.twin_vjp_calls)
     if device.type == "cuda":
-        check_no_plain_on_card("stage-1 train step")
+        check_no_plain_on_card(label)
     per = expect["kernels"]
     wrong = [f"{name}: {n} calls in {n_steps} steps, expected "
              f"{per.get(name, 0)} each" for name, n in counts.items()
@@ -2186,7 +2206,7 @@ def drive_train(cfg: Config, trainer, state, batch, *, device,
     losses = {k: float(v) for k, v in metrics.items()}
     bad = [k for k, v in losses.items() if not np.isfinite(v)]
     if bad:
-        raise AssertionError(f"train step: losses not finite: {bad}")
+        raise AssertionError(f"{label}: losses not finite: {bad}")
     return {"seconds": float(np.median(times)), "times": times,
             "counts": counts, "twins": twins, "per_step": per,
             "losses": losses, "state": state}
@@ -2239,9 +2259,7 @@ def check_train_parity(card: str, cfg: Config, params) -> None:
     of its largest value (plus GRAD_FLOOR of its model's largest)."""
     cfg32 = dataclasses.replace(_no_dropout(cfg), runtime=RuntimeConfig(
         compute_dtype="float32"))
-    nb = SyntheticDataset(cfg.model, batch_size=2, seed=PARITY_SEED,
-                          n_frames=TRAIN_FRAMES, text_len=TRAIN_TEXT) \
-        .next_batch()
+    nb = train_batch(cfg, 2, PARITY_SEED)
     if nb.frame_lengths[0] == nb.frame_lengths[1]:
         raise AssertionError(f"parity batch: equal frame lengths "
                              f"{nb.frame_lengths}")
@@ -2257,6 +2275,18 @@ def check_train_parity(card: str, cfg: Config, params) -> None:
     if not torch.equal(got["durations"], ref["durations"]):
         raise AssertionError("fp32 train step: predicted durations differ "
                              "from the CPU's")
+    gate_losses_and_grads(
+        f"fp32 card vs fp32 CPU plain path, batch 2 x {TRAIN_FRAMES} frames "
+        f"(frame lengths {nb.frame_lengths.tolist()}), dropout 0: FSQ codes "
+        f"equal, predicted durations equal;", got, ref, t_cpu, card)
+
+
+def gate_losses_and_grads(head: str, got: dict, ref: dict, t_cpu: float,
+                          card: str) -> None:
+    """Each loss term of ``got`` within LOSS_RTOL of ``ref``'s, each
+    gradient tensor within GRAD_RTOL of its largest value plus GRAD_FLOOR of
+    its model's largest (the part before the first dot of its name); print
+    the worst term and the worst tensors, raise on any beyond."""
     loss_err = {k: abs(got["losses"][k] - v) / max(abs(v), 1e-30) if v
                 else abs(got["losses"][k]) for k, v in ref["losses"].items()}
     worst_loss = max(loss_err, key=loss_err.get)
@@ -2274,49 +2304,33 @@ def check_train_parity(card: str, cfg: Config, params) -> None:
                                                           else np.inf)
         n_over += err > 1e-3 * top + floor
     worst = sorted(ratios, key=ratios.get, reverse=True)[:3]
-    print(f"  fp32 card vs fp32 CPU plain path, batch 2 x {TRAIN_FRAMES} "
-          f"frames (frame lengths {nb.frame_lengths.tolist()}), dropout 0: "
-          f"FSQ codes equal, predicted durations equal; worst loss term "
-          f"{worst_loss} rel err {loss_err[worst_loss]:.2e} (tol "
-          f"{LOSS_RTOL:.0e}); {len(ratios)} gradient tensors, worst "
-          f"err/allowed {', '.join(f'{k} {ratios[k]:.3f}' for k in worst)} "
-          f"(allowed {GRAD_RTOL:.0e} * max|g| + {GRAD_FLOOR:.0e} * the "
-          f"model's max|g|; {n_over} tensors above 1e-3 * max|g|; CPU run "
+    print(f"  {head} worst loss term {worst_loss} rel err "
+          f"{loss_err[worst_loss]:.2e} (tol {LOSS_RTOL:.0e}); {len(ratios)} "
+          f"gradient tensors, worst err/allowed "
+          f"{', '.join(f'{k} {ratios[k]:.3f}' for k in worst)} (allowed "
+          f"{GRAD_RTOL:.0e} * max|g| + {GRAD_FLOOR:.0e} * the model's "
+          f"max|g|; {n_over} tensors above 1e-3 * max|g|; CPU run "
           f"{t_cpu:.1f} s)  [{card}]")
     bad = [k for k, e in loss_err.items() if not e <= LOSS_RTOL]
     if bad:
-        raise AssertionError(f"fp32 train step vs CPU: loss terms {bad}: "
+        raise AssertionError(f"{head} loss terms {bad}: "
                              f"{ {k: loss_err[k] for k in bad} }")
     bad = [k for k, r in ratios.items() if not r <= 1.0]
     if bad:
-        raise AssertionError(f"fp32 train step vs CPU: gradients {bad[:10]}")
+        raise AssertionError(f"{head} gradients {bad[:10]}")
 
 
-def phase_train(card: str) -> dict:
-    """The stage-1 step at batch 16 x 1024 frames, bf16, dropout on: one
-    warm-up step, then the median of 5, the launches per step, peak memory
-    and the loss terms; then the fp32 card-vs-CPU check."""
-    cfg = train_config()
+def report_train(cfg: Config, r: dict, n_steps: int, what: str,
+                 card: str) -> None:
+    """Print a train phase's step times, audio-s trained per s, peak memory
+    (since the last reset), losses, launches and twin backwards per step."""
     m, t = cfg.model, cfg.train
-    params = init_params(cfg, seed=0, device="cpu", with_discriminator=True)
-    params["acoustic"]["duration_predictor.out.bias"].fill_(DURATION_BIAS)
-    trainer = Stage1Trainer(cfg, params, device="cuda", seed=0)
-    state = trainer.init_state(params)
-    ds = SyntheticDataset(m, batch_size=t.batch_size, seed=0,
-                          n_frames=TRAIN_FRAMES, text_len=TRAIN_TEXT)
-    batch = batch_to_device(ds.next_batch(), "cuda")
-    state, _ = trainer.train_step(state, batch)          # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    n_steps = 5
-    r = drive_train(cfg, trainer, state, batch, device="cuda",
-                    n_steps=n_steps)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     audio_s = t.batch_size * TRAIN_FRAMES * m.audio.hop_length \
         / m.audio.sample_rate
     ms = [x * 1e3 for x in r["times"]]
     print(f"  batch {t.batch_size} x {TRAIN_FRAMES} frames ({TRAIN_TEXT} "
-          f"phonemes), bf16, dropout on: {r['seconds'] * 1e3:.1f} ms/step "
+          f"phonemes), {what}: {r['seconds'] * 1e3:.1f} ms/step "
           f"(median of {n_steps}, min {min(ms):.1f}, max {max(ms):.1f}), "
           f"{audio_s / r['seconds']:.1f} audio-s trained per s ({audio_s:.1f} "
           f"audio-s per step), peak memory {peak_gb:.2f} GB  [{card}]")
@@ -2326,7 +2340,46 @@ def phase_train(card: str) -> dict:
           f"{ {k: n / n_steps for k, n in r['counts'].items()} } (expected "
           f"{r['per_step']}); twin backwards per step "
           f"{ {k: n / n_steps for k, n in r['twins'].items()} }; plain "
-          f"versions on the card: none")
+          f"versions on the card: {sum(plain.cuda_calls.values())}")
+
+
+def train_batch(cfg: Config, batch_size: int, seed: int):
+    """A synthetic batch of ``TRAIN_FRAMES`` frames and ``TRAIN_TEXT``
+    phonemes (numpy)."""
+    return SyntheticDataset(cfg.model, batch_size=batch_size, seed=seed,
+                            n_frames=TRAIN_FRAMES, text_len=TRAIN_TEXT) \
+        .next_batch()
+
+
+def run_train_phase(card: str, cfg: Config, trainer, state, batch,
+                    expect: dict, label: str, n_steps: int = 5) -> dict:
+    """One warm-up step, then ``n_steps`` through ``drive_train`` with the
+    peak memory reset between, and the report."""
+    state, _ = trainer.train_step(state, batch)          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    r = drive_train(cfg, trainer, state, batch, device="cuda",
+                    n_steps=n_steps, expect=expect, label=label)
+    report_train(cfg, r, n_steps, label, card)
+    step_state = r["state"]
+    return {"counts": r["counts"], "n_calls": n_steps,
+            "fn": lambda: trainer.train_step(step_state, batch),
+            "inputs": ()}
+
+
+def phase_train(card: str) -> dict:
+    """The stage-1 step at batch 16 x 1024 frames, bf16, dropout on: one
+    warm-up step, then the median of 5, the launches per step, peak memory
+    and the loss terms; then the fp32 card-vs-CPU check."""
+    cfg = train_config()
+    t = cfg.train
+    params = init_params(cfg, seed=0, device="cpu", with_discriminator=True)
+    params["acoustic"]["duration_predictor.out.bias"].fill_(DURATION_BIAS)
+    trainer = Stage1Trainer(cfg, params, device="cuda", seed=0)
+    batch = batch_to_device(train_batch(cfg, t.batch_size, 0), "cuda")
+    res = run_train_phase(card, cfg, trainer, trainer.init_state(params),
+                          batch, train_expected_counts(cfg, TRAIN_FRAMES),
+                          "stage-1 step (bf16, dropout on)")
     # the forward-sum loss alone at the step's lattice: its loop over the
     # frames is launch-bound
     from torch.profiler import ProfilerActivity, profile
@@ -2351,10 +2404,165 @@ def phase_train(card: str) -> dict:
           f"x {TRAIN_TEXT} phonemes), forward + backward: {fsum_ms:.1f} ms, "
           f"{n_launch} kernel launches  [{card}]")
     check_train_parity(card, cfg, params)
-    step_state = r["state"]
-    return {"counts": r["counts"], "n_calls": n_steps,
-            "fn": lambda: trainer.train_step(step_state, batch),
-            "inputs": ()}
+    return res
+
+
+# ---------------------------------------------------------------------------
+# stages 2 and 3: the style-diffusion step and the 1-step distillation
+# ---------------------------------------------------------------------------
+
+def stage2_expected_counts(cfg: Config) -> dict:
+    """Kernel calls of one stage-2 step: the frozen style extractor, prompt
+    encoder (with its pooling) and text encoder, forward only (row 2,
+    bf16); one denoiser call on the batch with grad (row 2, fp32: each
+    block's self- and cross-attention, each with a twin backward)."""
+    m = cfg.model
+    den = 2 * m.diffusion.n_layers
+    frozen = (m.style.extractor_layers + 2 + m.prompt_encoder.n_layers + 1
+              + m.text_encoder.n_attn_layers)
+    return {"kernels": {"full_attention": frozen + den},
+            "twins": {"full_attention": den}}
+
+
+def stage3_expected_counts(cfg: Config, n_frames: int,
+                           n_teacher_steps: int) -> dict:
+    """Kernel calls of one stage-3 step: the frozen prompt and text
+    encoders (row 2, bf16); the teacher's sampler under no_grad (its
+    denoiser calls through row 2 fp32, rows 8-9 as ``sampler_calls``
+    counts them); the student's one denoiser call with grad (row 2 fp32,
+    twin backwards); the teacher's decode (row 1, row 6 twice a block) and
+    the student's with its backward (rows 3-5, row 6 twice and row 7 twice
+    a block), or full attention where the frames fit in one chunk."""
+    m = cfg.model
+    d = m.decoder
+    n_attn = sum(1 for i in range(d.n_blocks) if (i + 1) % d.attn_every == 0)
+    n_den, n_euler, n_heun = sampler_calls(cfg, False, n_teacher_steps)
+    den = 2 * m.diffusion.n_layers
+    expect = {"full_attention": (m.prompt_encoder.n_layers + 1
+                                 + m.text_encoder.n_attn_layers
+                                 + m.prosody_encoder.n_layers
+                                 + den * (n_den + 1)),
+              "sampler_euler": n_euler, "sampler_heun": n_heun,
+              "adain_conv": 4 * d.n_blocks,
+              "adain_conv_bwd_data": 2 * d.n_blocks}
+    twins = {"full_attention": den}
+    if n_frames > d.attn_window:
+        expect.update(local_attention=n_attn, local_attention_fwd_lse=n_attn,
+                      local_attention_bwd_dq=n_attn,
+                      local_attention_bwd_dkv=n_attn)
+    else:
+        expect["full_attention"] += 2 * n_attn
+        twins["full_attention"] += n_attn
+    return {"kernels": expect, "twins": twins}
+
+
+def diffusion_train_params(cfg: Config) -> dict:
+    """Seed-0 weights with ``DURATION_BIAS`` and the denoiser's AdaLN gates
+    drawn (``with_denoiser_gates``), so that every block reaches the
+    loss."""
+    params = init_params(cfg, seed=0, device="cpu")
+    params["acoustic"]["duration_predictor.out.bias"].fill_(DURATION_BIAS)
+    return with_denoiser_gates(params)
+
+
+def diffusion_parity_run(trainer, params, nb, device, **draws) -> dict:
+    """One fp32 loss of ``trainer`` (a stage-2 or stage-3 trainer on
+    ``device``) with its denoiser gradients, at the initial weights, on
+    ``draws`` moved to the device."""
+    trainer.load(trainer.init_state(params["diffusion"]).params)
+    _, aux, grads = trainer.grads(
+        batch_to_device(nb, device),
+        **{k: v.to(device) for k, v in draws.items()})
+    return {"losses": {k: v.item() for k, v in aux.items() if v.ndim == 0},
+            "grads": {f"diffusion.{k}": v.cpu() for k, v in grads.items()},
+            "aux": {k: v.cpu() for k, v in aux.items() if v.ndim > 0}}
+
+
+def check_diffusion_parity(card: str, cfg: Config, label: str, make,
+                           params, draws: dict) -> dict:
+    """fp32 on the card (the kernels, TF32 off) against fp32 on the CPU (the
+    plain versions), batch 2 x ``TRAIN_FRAMES`` with two frame lengths, the
+    same draws on both sides: the loss terms and the denoiser's gradients
+    through ``gate_losses_and_grads``.  ``make(device)`` builds the
+    trainer.  Returns both runs' non-scalar outputs."""
+    nb = train_batch(cfg, 2, PARITY_SEED)
+    t0 = time.perf_counter()
+    ref = diffusion_parity_run(make("cpu"), params, nb, "cpu", **draws)
+    t_cpu = time.perf_counter() - t0
+    reset_counts()
+    got = diffusion_parity_run(make("cuda"), params, nb, "cuda", **draws)
+    check_no_plain_on_card(f"fp32 {label} card step")
+    checks = []
+    for k, v in ref["aux"].items():
+        if not torch.equal(got["aux"][k], v):
+            raise AssertionError(f"fp32 {label}: {k} differ from the CPU's")
+        checks.append(f"{k} equal")
+    gate_losses_and_grads(
+        f"fp32 {label}, card vs CPU plain path, batch 2 x {TRAIN_FRAMES} "
+        f"frames (frame lengths {nb.frame_lengths.tolist()}):"
+        + "".join(f" {c};" for c in checks), got, ref, t_cpu, card)
+    return {"ref": ref, "got": got}
+
+
+def phase_train_stage2(card: str) -> dict:
+    """The stage-2 step (``Stage2Trainer``) at batch 16 x 1024 frames, the
+    acoustic model frozen in bf16, the denoiser fp32; then fp32 card vs
+    CPU at batch 2 on the same draws (one prompt dropped of two)."""
+    cfg = train_config()
+    m = cfg.model
+    params = diffusion_train_params(cfg)
+    trainer = Stage2Trainer(cfg, params, device="cuda", seed=0)
+    batch = batch_to_device(train_batch(cfg, cfg.train.batch_size, 0), "cuda")
+    res = run_train_phase(card, cfg, trainer,
+                          trainer.init_state(params["diffusion"]), batch,
+                          stage2_expected_counts(cfg),
+                          "stage-2 step (acoustic bf16 frozen, denoiser fp32)")
+    cfg32 = dataclasses.replace(cfg, runtime=RuntimeConfig(
+        compute_dtype="float32"))
+    g = torch.Generator().manual_seed(PARITY_SEED)
+    draws = {"drop": torch.tensor([False, True]),
+             "n": torch.randn(2, generator=g),
+             "noise": torch.randn(2, m.style.n_codes, m.style.d_style,
+                                  generator=g)}
+    check_diffusion_parity(
+        card, cfg, "stage-2 loss", lambda dev: Stage2Trainer(cfg32, params,
+                                                        device=dev),
+        params, draws)
+    return res
+
+
+STAGE3_PARITY_STEPS = 4
+
+
+def phase_train_stage3(card: str) -> dict:
+    """The stage-3 step (``Stage3Trainer``: 16 teacher steps, guidance 3)
+    at batch 16 x 1024 frames, the acoustic model frozen in bf16; then
+    fp32 card vs CPU at batch 2 with ``STAGE3_PARITY_STEPS`` teacher steps
+    (so the CPU reference stays short) on the same noise: both decodes'
+    predicted durations equal, the loss terms and gradients gated."""
+    cfg = train_config()
+    m, dc = cfg.model, cfg.model.diffusion
+    params = diffusion_train_params(cfg)
+    trainer = Stage3Trainer(cfg, params, device="cuda", seed=0)
+    if trainer.n_teacher_steps != 16 or dc.cfg_scale != 3.0:
+        raise AssertionError(f"stage 3: {trainer.n_teacher_steps} teacher "
+                             f"steps, guidance {dc.cfg_scale}")
+    batch = batch_to_device(train_batch(cfg, cfg.train.batch_size, 0), "cuda")
+    res = run_train_phase(
+        card, cfg, trainer, trainer.init_state(params["diffusion"]), batch,
+        stage3_expected_counts(cfg, TRAIN_FRAMES, trainer.n_teacher_steps),
+        f"stage-3 step ({trainer.n_teacher_steps} teacher steps, guidance "
+        f"{dc.cfg_scale}, acoustic bf16 frozen, student fp32)")
+    cfg32 = dataclasses.replace(cfg, runtime=RuntimeConfig(
+        compute_dtype="float32"))
+    g = torch.Generator().manual_seed(PARITY_SEED)
+    noise = torch.randn(2, m.style.n_codes, m.style.d_style, generator=g)
+    check_diffusion_parity(
+        card, cfg, f"stage-3 loss ({STAGE3_PARITY_STEPS} teacher steps)",
+        lambda dev: Stage3Trainer(cfg32, params, device=dev,
+                                  n_teacher_steps=STAGE3_PARITY_STEPS),
+        params, {"noise": noise})
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -3175,6 +3383,16 @@ def main() -> None:
     with phase("profile train_stage1"):
         phase_profile(train["fn"], train["inputs"], card,
                       "stage-1 train step, batch 16 x 1024")
+    with phase("train_stage2"):
+        stage2 = phase_train_stage2(card)
+    with phase("profile train_stage2"):
+        phase_profile(stage2["fn"], stage2["inputs"], card,
+                      "stage-2 train step, batch 16 x 1024")
+    with phase("train_stage3"):
+        stage3 = phase_train_stage3(card)
+    with phase("profile train_stage3"):
+        phase_profile(stage3["fn"], stage3["inputs"], card,
+                      "stage-3 train step, batch 16 x 1024")
     with phase("serve"):
         serve = phase_serve(card)
     with phase("profile serve"):
@@ -3188,6 +3406,8 @@ def main() -> None:
              "long_form": (lf["counts"], lf["n_calls"]),
              "long_form_2048": (longf[2048]["counts"], longf[2048]["n_calls"]),
              "train_stage1": (train["counts"], train["n_calls"]),
+             "train_stage2": (stage2["counts"], stage2["n_calls"]),
+             "train_stage3": (stage3["counts"], stage3["n_calls"]),
              **{name: (r["counts"], r["n_calls"]) for name, r in serve.items()},
              "verify": (verify["counts"], verify["n_calls"]),
              "istft_head": (istft_head["counts"], istft_head["n_calls"])}

@@ -324,7 +324,9 @@ def _sum_global(d, like):
 class AdaINConvBlock(torch.autograd.Function):
     """The decoder block with row 7 in its backward.  ``conv_pass`` and
     ``bwd_data`` are row 6's and row 7's wrappers, or their plain versions
-    (the caller picks by device)."""
+    (the caller picks by device).  The weight gradients are computed only
+    where a kernel requires grad (a frozen decoder, as stage 3 backpropagates
+    through, wants the input and style gradients alone)."""
 
     @staticmethod
     def forward(ctx, x, scale, shift, kernel1, kernel2, dilation, conv_pass,
@@ -339,6 +341,7 @@ class AdaINConvBlock(torch.autograd.Function):
     def backward(ctx, g):
         x, scale, shift, k1, k2, h, mean_x, rstd_x, mean_h, rstd_h = \
             ctx.saved_tensors
+        need_x, need_s, need_b, need_w1, need_w2 = ctx.needs_input_grad[:5]
         C = x.shape[-1]
         s1, s2 = scale[..., :C], scale[..., C:]
         b1, b2 = shift[..., :C], shift[..., C:]
@@ -348,15 +351,17 @@ class AdaINConvBlock(torch.autograd.Function):
         dh2 = ctx.bwd_data(dc2, h, s2, b2, mean_h, rstd_h, k2, dilation=1)
         dc1_f, ds2, db2, n_h = _norm_bwd(dh2, h, s2, mean_h, rstd_h)
         dc1 = dc1_f.to(g.dtype)
-        dW2 = _conv_wgrad(_silu_act(n_h, s2, b2), dc2, k2.shape[0], 1)
+        dW2 = (_conv_wgrad(_silu_act(n_h, s2, b2), dc2, k2.shape[0], 1)
+               .to(k2.dtype) if need_w2 else None)
         # pass 1 (dilated): dh1 -> dx, ds1, db1, dW1
         dh1 = ctx.bwd_data(dc1, x, s1, b1, mean_x, rstd_x, k1,
                            dilation=ctx.dilation)
         dx_n, ds1, db1, n_x = _norm_bwd(dh1, x, s1, mean_x, rstd_x)
-        dW1 = _conv_wgrad(_silu_act(n_x, s1, b1), dc1, k1.shape[0],
-                          ctx.dilation)
-        dx = (g.float() * inv_sqrt2 + dx_n).to(x.dtype)
-        dscale = _sum_global(torch.cat([ds1, ds2], dim=-1), scale)
-        dshift = _sum_global(torch.cat([db1, db2], dim=-1), shift)
-        return (dx, dscale.to(scale.dtype), dshift.to(shift.dtype),
-                dW1.to(k1.dtype), dW2.to(k2.dtype), None, None, None)
+        dW1 = (_conv_wgrad(_silu_act(n_x, s1, b1), dc1, k1.shape[0],
+                           ctx.dilation).to(k1.dtype) if need_w1 else None)
+        dx = (g.float() * inv_sqrt2 + dx_n).to(x.dtype) if need_x else None
+        dscale = (_sum_global(torch.cat([ds1, ds2], dim=-1), scale)
+                  .to(scale.dtype) if need_s else None)
+        dshift = (_sum_global(torch.cat([db1, db2], dim=-1), shift)
+                  .to(shift.dtype) if need_b else None)
+        return dx, dscale, dshift, dW1, dW2, None, None, None

@@ -10,8 +10,8 @@ and the step loop is a Python loop, in place of JAX's ``lax.scan`` and
 ``lax.cond``; the step tail (CFG combine, score, Euler / Heun update) goes
 through ``dispatch.fused_euler_step`` / ``fused_heun_correction``.  The
 diffusion net runs in fp32 whatever the compute dtype
-(``RuntimeConfig.diffusion_dtype``).  The training loss belongs to the
-training slice.
+(``RuntimeConfig.diffusion_dtype``).  ``StyleDiffusion.forward`` is the
+EDM training loss (stage 2), its draws inputs as the sampler's noise is.
 """
 from __future__ import annotations
 
@@ -92,27 +92,89 @@ class StyleDiffusion(nn.Module):
         self.null_prompt_summary = nn.Parameter(torch.empty(ctx_dim))
         self.null_prompt_tokens = nn.Parameter(torch.empty(1, ctx_dim))
 
-    def _cfg_context(self, text_enc, prompt_tokens, prompt_summary,
-                     text_mask):
-        """[cond | uncond] contexts, masks and summaries on a doubled batch.
-
-        The uncond half replaces the prompt with the learned nulls, cast to
-        the prompt's dtype as JAX casts them.
-        """
+    def _context(self, text_enc, prompt_tokens, text_mask, drop_prompt=None):
+        """[text; prompt] context and its mask; where ``drop_prompt`` (B,)
+        is True the prompt tokens are the learned null, cast to their dtype
+        as JAX casts it (training-time CFG dropout and the uncond branch)."""
         B, P, C = prompt_tokens.shape
-        null_tok = self.null_prompt_tokens.to(prompt_tokens.dtype)[None] \
-            .expand(B, P, C)
-        ctx2 = torch.cat([torch.cat([text_enc, prompt_tokens], dim=1),
-                          torch.cat([text_enc, null_tok], dim=1)], dim=0)
-        mask2 = None
+        if drop_prompt is not None:
+            null_tok = self.null_prompt_tokens.to(prompt_tokens.dtype)[None] \
+                .expand(B, P, C)
+            prompt_tokens = torch.where(drop_prompt[:, None, None], null_tok,
+                                        prompt_tokens)
+        ctx = torch.cat([text_enc, prompt_tokens], dim=1)
+        ctx_mask = None
         if text_mask is not None:
             pm = torch.ones(B, P, dtype=torch.bool, device=text_mask.device)
-            m = torch.cat([text_mask, pm], dim=1)
-            mask2 = torch.cat([m, m], dim=0)
-        null_sum = self.null_prompt_summary.to(prompt_summary.dtype)[None] \
+            ctx_mask = torch.cat([text_mask, pm], dim=1)
+        return ctx, ctx_mask
+
+    def _summary(self, prompt_summary, drop_prompt=None):
+        """The prompt summary, the learned null where ``drop_prompt``."""
+        if drop_prompt is None:
+            return prompt_summary
+        null = self.null_prompt_summary.to(prompt_summary.dtype)[None] \
             .expand_as(prompt_summary)
-        summary2 = torch.cat([prompt_summary, null_sum], dim=0)
-        return ctx2, mask2, summary2
+        return torch.where(drop_prompt[:, None], null, prompt_summary)
+
+    def _cfg_context(self, text_enc, prompt_tokens, prompt_summary,
+                     text_mask):
+        """[cond | uncond] contexts, masks and summaries on a doubled batch:
+        the uncond half with every prompt dropped."""
+        B = text_enc.shape[0]
+        keep = torch.zeros(B, dtype=torch.bool, device=text_enc.device)
+        drop = torch.ones_like(keep)
+        ctx_c, mask_c = self._context(text_enc, prompt_tokens, text_mask,
+                                      keep)
+        ctx_u, mask_u = self._context(text_enc, prompt_tokens, text_mask,
+                                      drop)
+        mask2 = None if mask_c is None else torch.cat([mask_c, mask_u], dim=0)
+        summary2 = torch.cat([self._summary(prompt_summary, keep),
+                              self._summary(prompt_summary, drop)], dim=0)
+        return torch.cat([ctx_c, ctx_u], dim=0), mask2, summary2
+
+    # -- training -----------------------------------------------------------
+
+    def forward(self, style_target, text_enc, prompt_tokens, prompt_summary,
+                *, text_mask=None, drop_prompt=None, n=None, noise=None,
+                rng: torch.Generator | None = None):
+        """The EDM denoising loss: (loss, {"sigma", "denoised"}).
+
+        style_target: (B, K, d_style) clean latents from the frozen
+        extractor.  The draws are inputs, since the JAX PRNG cannot be
+        reproduced: ``n`` (B,) standard normal for the log-normal sigma,
+        ``noise`` (B, K, d_style) standard normal; each is drawn from
+        ``rng`` on the target's device when not given.  ``drop_prompt`` (B,)
+        bool nulls the prompt (None: no drop).
+        """
+        sd = self.cfg.sigma_data
+        B = style_target.shape[0]
+        dev = style_target.device
+        if n is None:
+            n = torch.randn(B, generator=rng, device=dev)
+        if noise is None:
+            noise = torch.randn(style_target.shape, generator=rng, device=dev)
+        sigma = torch.exp(n.float() * 1.2 - 1.2) * sd / 0.5
+        target = style_target.float()
+        x_sigma = target + sigma[:, None, None] * noise.float()
+        ctx, ctx_mask = self._context(text_enc, prompt_tokens, text_mask,
+                                      drop_prompt)
+        summary = self._summary(prompt_summary, drop_prompt)
+        denoised = self.denoiser(x_sigma, sigma, ctx, ctx_mask, summary)
+        w = ((sigma ** 2 + sd ** 2) / (sigma * sd) ** 2)[:, None, None]
+        loss = torch.mean(w * (denoised - target) ** 2)
+        return loss, {"sigma": sigma, "denoised": denoised}
+
+    def init_all(self, style_target, text_enc, prompt_tokens, prompt_summary,
+                 rng: torch.Generator | None = None, *, n=None, noise=None):
+        """The loss with no prompt dropped (JAX initialises through it)."""
+        keep = torch.zeros(style_target.shape[0], dtype=torch.bool,
+                           device=style_target.device)
+        loss, _ = self(style_target, text_enc, prompt_tokens, prompt_summary,
+                       drop_prompt=keep, n=n, noise=noise, rng=rng)
+        return loss
+
+    # -- sampling -----------------------------------------------------------
 
     def _denoise_pair(self, x, sigma, ctx2, mask2, summary2):
         """One CFG-doubled denoiser call at the host number ``sigma``:

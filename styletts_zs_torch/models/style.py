@@ -92,8 +92,11 @@ class StyleQuantizer(nn.Module):
         z = (s @ W.T) @ torch.linalg.inv(G)
         lv = torch.tensor(self.cfg.fsq_levels, dtype=torch.float32,
                           device=style.device)
-        digit = torch.round(torch.minimum(
-            torch.clamp((z + 1.0) * (lv - 1.0) / 2.0, min=0.0), lv - 1.0))
+        digit_c = torch.minimum(
+            torch.clamp((z + 1.0) * (lv - 1.0) / 2.0, min=0.0), lv - 1.0)
+        # straight-through: the rounding's gradient is the identity (stage 3
+        # differentiates its perceptual loss through this projection)
+        digit = digit_c + (torch.round(digit_c) - digit_c).detach()
         codes = 2.0 * digit / (lv - 1.0) - 1.0
         return self.up(codes.to(style.dtype))
 

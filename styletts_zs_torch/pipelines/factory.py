@@ -6,8 +6,9 @@ dict ``{"acoustic": state_dict, "diffusion": ..., "vocoder": ...}`` (and
 ``init_params`` (seeded, the Flax initialisers' distributions) or from
 ``pipelines.convert.convert_params`` (a JAX tree).  ``build_models`` loads
 them into modules on a device and casts them once to the compute dtype (the
-diffusion net to ``diffusion_dtype``, fp32), for inference;
-``build_train_modules`` builds working copies in the compute dtype for
+diffusion net to ``diffusion_dtype``, fp32), for inference
+(``build_frozen_modules`` for some parts: the frozen models of training);
+``build_train_modules`` builds working copies in those dtypes for
 ``pipelines.train``, which keeps the fp32 masters.  The entry points run on
 the card unless the caller passes ``device="cpu"``.
 """
@@ -108,33 +109,45 @@ class Models:
     vocoder: Vocoder
 
 
-def build_models(cfg: Config, params, *, device=None) -> Models:
-    """Modules on ``device`` holding ``params``, cast once to their dtypes."""
+def _dtype(cfg: Config, part: str) -> torch.dtype:
+    """The diffusion net's dtype (fp32), else the compute dtype."""
+    r = cfg.runtime
+    return getattr(torch, r.diffusion_dtype if part == "diffusion"
+                   else r.compute_dtype)
+
+
+def build_frozen_modules(cfg: Config, params, parts, *,
+                         device=None) -> dict[str, nn.Module]:
+    """``parts`` on ``device`` holding ``params``, in eval mode with
+    gradients off, cast once to their dtypes."""
     dev = resolve_device(device)
-    mods = _empty_modules(cfg, dev)
+    mods = _empty_modules(cfg, dev, parts)
     for part, mod in mods.items():
         mod.load_state_dict(params[part], strict=True)
         mod.eval().requires_grad_(False)
-    # project_style decides on fp32 master weights whatever the dtype
-    mods["acoustic"].quantizer.keep_master()
-    dt = getattr(torch, cfg.runtime.compute_dtype)
-    mods["acoustic"].to(dt)
-    mods["vocoder"].to(dt)
-    mods["diffusion"].to(getattr(torch, cfg.runtime.diffusion_dtype))
-    return Models(**mods)
+    if "acoustic" in mods:
+        # project_style decides on fp32 master weights whatever the dtype
+        mods["acoustic"].quantizer.keep_master()
+    for part, mod in mods.items():
+        mod.to(_dtype(cfg, part))
+    return mods
 
+
+def build_models(cfg: Config, params, *, device=None) -> Models:
+    """Modules on ``device`` holding ``params``, cast once to their dtypes."""
+    return Models(**build_frozen_modules(cfg, params, PARTS, device=device))
 
 
 def build_train_modules(cfg: Config, params, parts, *,
                         device=None) -> dict[str, nn.Module]:
-    """Working copies of ``parts`` on ``device`` in the compute dtype, with
-    gradients on: Flax casts its fp32 parameters to the compute dtype at
-    each use, so the gradient is the compute-dtype one, which the trainer
-    upcasts onto its fp32 masters."""
+    """Working copies of ``parts`` on ``device`` in their dtypes (the
+    diffusion net fp32, the rest the compute dtype), with gradients on:
+    Flax casts its fp32 parameters to the compute dtype at each use, so
+    the gradient is the compute-dtype one, which the trainer upcasts onto
+    its fp32 masters."""
     dev = resolve_device(device)
-    dt = getattr(torch, cfg.runtime.compute_dtype)
     mods = _empty_modules(cfg, dev, parts)
     for part, mod in mods.items():
         mod.load_state_dict(params[part], strict=True)
-        mod.to(dt).train()
+        mod.to(_dtype(cfg, part)).train()
     return mods

@@ -1,7 +1,9 @@
-"""Stage-1 training (the acoustic GAN step) on the card.
+"""The three training stages on the card: stage 1 (the acoustic GAN step),
+stage 2 (the style-diffusion EDM step), stage 3 (1-step distillation with
+the perceptual loss).
 
-Counterpart of ``styletts_zs_tpu/pipelines/train.py:45-277``
-(``make_optimizer``, ``Stage1Trainer``), term for term: the generator loss
+Counterpart of ``styletts_zs_tpu/pipelines/train.py``, term for term.
+Stage 1 (``make_optimizer``, ``Stage1Trainer``): the generator loss
 is the mel L1, the LSGAN adversarial and feature-matching terms, the
 duration, F0 and energy L1s, the forward-sum aligner, the speaker InfoNCE
 with its reconstructed-mel and vocoded-mel views against the stop-gradient
@@ -20,8 +22,22 @@ count before its increment, so the first update has lr 0 and changes
 nothing, weight decay included; the clip scales by max/||g|| only when
 ||g|| >= max (no epsilon).  Dropout draws from the trainer's
 ``torch.Generator`` (the JAX PRNG cannot be reproduced; parity runs set the
-rates to 0).  The CLI, checkpoints, monotonic alignment search and stages 2
-and 3 are not ported yet.
+rates to 0).  Monotonic alignment search is not ported yet.
+
+Stages 2 and 3 (``Stage2Trainer``, ``Stage3Trainer``) train the style
+denoiser in fp32 (the diffusion net's dtype) on fp32 masters, against the
+acoustic model frozen in its compute-dtype copy (gradients off, eval mode).
+Stage 2: the frozen extractor's style of the ground-truth mel is the
+target, the prompt and text encodings the conditioning, a Bernoulli
+``cond_dropout`` nulls the prompt, and the EDM loss
+(``StyleDiffusion.forward``) trains the denoiser; then the EMA.  Stage 3:
+the student starts as a copy of the teacher; one standard-normal draw goes
+to the teacher's multi-step sampler (no grad) and the student's 1-step
+path; the loss is the latent MSE plus the masked L1 between the two mels
+that the frozen acoustic model decodes from the quantised styles (the
+teacher's without grad, its frame mask used).  The draws (JAX's PRNG
+cannot be reproduced) are inputs of ``loss``; when not given they come
+from the trainer's ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -39,7 +55,8 @@ from styletts_zs_torch.ops import align as align_ops
 from styletts_zs_torch.ops import fsq as fsq_ops
 from styletts_zs_torch.ops import stft as stft_ops
 from styletts_zs_torch.ops.attention import length_mask
-from styletts_zs_torch.pipelines.factory import (build_train_modules,
+from styletts_zs_torch.pipelines.factory import (build_frozen_modules,
+                                                 build_train_modules,
                                                  resolve_device)
 
 G_PARTS = ("acoustic", "vocoder")
@@ -368,3 +385,196 @@ class Stage1Trainer:
                                d_opt, _unflat(state.ema_params, ema))
         return new_state, {k: v.detach() for k, v in {**g_aux,
                                                       **d_aux}.items()}
+
+
+# ---------------------------------------------------------------------------
+# stages 2 and 3: the style denoiser against the frozen acoustic model
+# ---------------------------------------------------------------------------
+
+@dataclass
+class DiffusionTrainState:
+    step: int
+    params: dict[str, torch.Tensor]        # fp32 denoiser masters
+    opt: AdamState
+    ema: dict[str, torch.Tensor] | None = None   # stage 2 only
+
+
+class _DiffusionTrainer:
+    """What stages 2 and 3 share: the acoustic model frozen in its compute
+    dtype, a working fp32 ``StyleDiffusion`` with gradients on, its
+    optimiser and the generator of the draws."""
+
+    frozen_parts: tuple[str, ...] = ("acoustic",)
+
+    def __init__(self, cfg: Config, params, *, device=None, seed: int = 0):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.frozen = build_frozen_modules(cfg, params, self.frozen_parts,
+                                           device=self.device)
+        self.acoustic = self.frozen["acoustic"]
+        self.diffusion = build_train_modules(cfg, params, ("diffusion",),
+                                             device=self.device)["diffusion"]
+        self.tx = make_optimizer(cfg)
+        self.rng = torch.Generator(device=self.device).manual_seed(seed)
+
+    def _masters(self, diffusion_params) -> dict[str, torch.Tensor]:
+        """fp32 copies on the device, in the working module's order."""
+        return {k: diffusion_params[k].detach().to(self.device,
+                                                   torch.float32).clone()
+                for k, _ in self.diffusion.named_parameters()}
+
+    @torch.no_grad()
+    def load(self, params: dict[str, torch.Tensor]) -> None:
+        """Copy the fp32 masters into the working denoiser."""
+        torch._foreach_copy_(list(self.diffusion.parameters()),
+                             list(params.values()))
+
+    @torch.no_grad()
+    def _condition(self, batch, *, prosody: bool):
+        """The frozen conditioning: (text mask, prompt tokens, summary,
+        (text encoding, prosody encoding or None))."""
+        m, ac = self.cfg.model, self.acoustic
+        phonemes = batch["phonemes"]
+        text_mask = length_mask(batch["text_lengths"], phonemes.shape[1])
+        ref_mel = stft_ops.mel_spectrogram(batch["ref_wav"], m.audio)
+        tokens, summary = ac.encode_prompt(ref_mel)
+        # stage 2 discards the prosody encoding, which XLA never computes
+        encoded = (ac.encode_text(phonemes, text_mask) if prosody
+                   else (ac.text_encoder(phonemes, mask=text_mask), None))
+        return text_mask, tokens, summary, encoded
+
+    def grads(self, batch, **draws):
+        """(loss, aux, fp32 gradients keyed like the denoiser masters) with
+        the working weights (``load`` them first)."""
+        loss, aux = self.loss(batch, **draws)
+        named = list(self.diffusion.named_parameters())
+        grads = torch.autograd.grad(loss, [p for _, p in named],
+                                    allow_unused=True)
+        return loss, aux, {k: torch.zeros_like(p) if g is None else g.float()
+                           for (k, p), g in zip(named, grads)}
+
+    def _update(self, state: DiffusionTrainState, grads):
+        new, opt = self.tx.update(list(grads.values()), state.opt,
+                                  list(state.params.values()))
+        return dict(zip(state.params, new)), opt
+
+
+class Stage2Trainer(_DiffusionTrainer):
+    """The stage-2 style-diffusion step.  ``params``: fp32 parameter dicts
+    with ``"acoustic"`` (frozen) and ``"diffusion"``; the modules run on
+    ``device`` (the card unless ``device="cpu"``); ``seed`` seeds the
+    draws."""
+
+    def init_state(self, diffusion_params) -> DiffusionTrainState:
+        """fp32 masters, moments and the EMA from the denoiser's tree."""
+        p = self._masters(diffusion_params)
+        return DiffusionTrainState(0, p, self.tx.init(list(p.values())),
+                                   {k: v.clone() for k, v in p.items()})
+
+    def loss(self, batch, *, drop=None, n=None, noise=None):
+        """(loss, {"diff"}): the EDM loss of the frozen extractor's style of
+        the ground-truth mel, conditioned on the frozen text and prompt
+        encodings.  ``drop`` (B,) bool nulls the prompt (drawn Bernoulli
+        ``cond_dropout`` when not given); ``n`` and ``noise`` are
+        ``StyleDiffusion.forward``'s draws."""
+        m = self.cfg.model
+        with torch.no_grad():
+            n_frames = batch["f0"].shape[1]
+            mel_gt = stft_ops.mel_spectrogram(batch["wav"], m.audio)[
+                :, :n_frames]
+            frame_mask = length_mask(batch["frame_lengths"], n_frames)
+            styled, _, _ = self.acoustic.extract_style(mel_gt, frame_mask)
+        text_mask, tokens, summary, (text_enc, _) = self._condition(
+            batch, prosody=False)
+        if drop is None:
+            drop = torch.rand(styled.shape[0], generator=self.rng,
+                              device=self.device) < m.diffusion.cond_dropout
+        loss, _ = self.diffusion(styled, text_enc, tokens, summary,
+                                 text_mask=text_mask, drop_prompt=drop, n=n,
+                                 noise=noise, rng=self.rng)
+        return loss, {"diff": loss}
+
+    def train_step(self, state: DiffusionTrainState, batch, **draws):
+        """One update and the EMA; returns (new state, metrics as 0-d
+        tensors)."""
+        self.load(state.params)
+        _, aux, grads = self.grads(batch, **draws)
+        params, opt = self._update(state, grads)
+        decay = self.cfg.train.ema_decay
+        ema = torch._foreach_add(
+            torch._foreach_mul(list(state.ema.values()), decay),
+            torch._foreach_mul(list(params.values()), 1.0 - decay))
+        return (DiffusionTrainState(state.step + 1, params, opt,
+                                    dict(zip(state.ema, ema))),
+                {k: v.detach() for k, v in aux.items()})
+
+
+STAGE3_METRICS = ("latent", "perceptual", "total_distill")
+
+
+class Stage3Trainer(_DiffusionTrainer):
+    """The stage-3 distillation step: the teacher (``params["diffusion"]``,
+    frozen) samples with ``n_teacher_steps`` (default
+    ``diffusion.n_steps``) Heun steps, the student's one CFG call must
+    reproduce its end point, in latent space and through the frozen
+    acoustic decoder."""
+
+    frozen_parts = ("acoustic", "diffusion")
+
+    def __init__(self, cfg: Config, params, *, device=None, seed: int = 0,
+                 n_teacher_steps: int | None = None):
+        super().__init__(cfg, params, device=device, seed=seed)
+        self.teacher = self.frozen["diffusion"]
+        self.n_teacher_steps = n_teacher_steps or cfg.model.diffusion.n_steps
+
+    def init_state(self, teacher_params) -> DiffusionTrainState:
+        """The student's fp32 masters, a copy of the teacher's tree, and
+        their moments."""
+        p = self._masters(teacher_params)
+        return DiffusionTrainState(0, p, self.tx.init(list(p.values())))
+
+    def loss(self, batch, *, noise=None):
+        """(loss, aux): aux holds JAX's ``latent``, ``perceptual`` and
+        ``total_distill`` and the two decodes' predicted durations.
+        ``noise`` (B, K, d_style) is the standard-normal draw both samplers
+        start from (drawn when not given)."""
+        m, t, ac = self.cfg.model, self.cfg.train, self.acoustic
+        text_mask, tokens, summary, encoded = self._condition(
+            batch, prosody=True)
+        text_enc = encoded[0]
+        if noise is None:
+            noise = torch.randn(text_enc.shape[0], m.style.n_codes,
+                                m.style.d_style, generator=self.rng,
+                                device=self.device)
+        with torch.no_grad():
+            s_teacher = self.teacher.sample(
+                noise, text_enc, tokens, summary, text_mask=text_mask,
+                n_steps=self.n_teacher_steps)
+        s_student = self.diffusion.sample_onestep(
+            noise, text_enc, tokens, summary, text_mask=text_mask)
+        loss_latent = torch.mean((s_student.float() - s_teacher.float()) ** 2)
+
+        def decode(style):
+            return ac.text_to_mel(batch["phonemes"], ac.quantize_style(style),
+                                  text_mask=text_mask,
+                                  n_frames=batch["f0"].shape[1],
+                                  encoded=encoded)
+
+        with torch.no_grad():
+            out_t = decode(s_teacher)
+        out_s = decode(s_student)
+        loss_perc = _masked_l1_feat(out_s.mel, out_t.mel, out_t.frame_mask)
+        loss = t.w_latent * loss_latent + t.w_perceptual * loss_perc
+        return loss, {"latent": loss_latent, "perceptual": loss_perc,
+                      "total_distill": loss,
+                      "durations_teacher": out_t.durations,
+                      "durations_student": out_s.durations}
+
+    def train_step(self, state: DiffusionTrainState, batch, **draws):
+        """One update of the student; returns (new state, JAX's metrics as
+        0-d tensors)."""
+        self.load(state.params)
+        _, aux, grads = self.grads(batch, **draws)
+        params, opt = self._update(state, grads)
+        return (DiffusionTrainState(state.step + 1, params, opt),
+                {k: aux[k].detach() for k in STAGE3_METRICS})

@@ -3,6 +3,12 @@ PyTorch port: one tiny parameter tree made with numpy from a seed, handed
 to both sides (the port through ``convert_params``)."""
 from __future__ import annotations
 
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -62,5 +68,48 @@ def n(x) -> np.ndarray:
     return np.asarray(x, dtype=np.float32)
 
 
+def _toml_lines(d: dict, path=()) -> list[str]:
+    """A nested dict of scalars and tuples as TOML tables."""
+    lines, subs = [], []
+    for k, v in d.items():
+        if isinstance(v, dict):
+            subs.append((k, v))
+        elif isinstance(v, bool):
+            lines.append(f"{k} = {str(v).lower()}")
+        elif isinstance(v, (list, tuple)):
+            lines.append(f"{k} = [{', '.join(repr(x) for x in v)}]")
+        elif isinstance(v, str):
+            lines.append(f'{k} = "{v}"')
+        else:
+            lines.append(f"{k} = {v!r}")
+    out = ([f"[{'.'.join(path)}]"] if path and lines else []) + lines
+    for k, v in subs:
+        out += _toml_lines(v, path + (k,))
+    return out
+
+
+def write_tiny_config(directory: Path) -> Path:
+    """The port's ``tiny_test_config()`` as a TOML file that ``load_config``
+    reads back equal."""
+    from styletts_zs_torch.config import load_config
+    path = Path(directory) / "tiny.toml"
+    path.write_text("\n".join(_toml_lines(dataclasses.asdict(
+        torch_tiny()))) + "\n")
+    assert load_config(str(path)) == torch_tiny()
+    return path
+
+
+def run_cli(args: list[str], config: Path, workdir: Path):
+    """``python -m styletts_zs_torch.cli train`` with ``args`` in a fresh
+    process on one thread, no card visible."""
+    repo = Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=str(repo), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    return subprocess.run(
+        [sys.executable, "-m", "styletts_zs_torch.cli", "train", *args,
+         "--config", str(config), "--workdir", str(workdir)],
+        cwd=repo, env=env, capture_output=True, text=True, timeout=300)
+
+
 __all__ = ["jax_tiny", "torch_tiny", "random_tree", "to_jax", "t", "n",
-           "leaf_name"]
+           "leaf_name", "write_tiny_config", "run_cli"]

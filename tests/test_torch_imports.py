@@ -34,6 +34,7 @@ BLOCKED_RUN = textwrap.dedent('''
     import torch
     assert not torch.cuda.is_available()
     from styletts_zs_torch.config import tiny_test_config
+    from styletts_zs_torch import cli
     from styletts_zs_torch.pipelines import factory, infer, serve, train, verify
     cfg = tiny_test_config()
     params = factory.init_params(cfg, device="cpu", with_discriminator=True)
@@ -44,6 +45,10 @@ BLOCKED_RUN = textwrap.dedent('''
         "make_fixed_style_fn": lambda: infer.make_fixed_style_fn(cfg, params),
         "Synthesizer": lambda: infer.Synthesizer(cfg, params),
         "Stage1Trainer": lambda: train.Stage1Trainer(cfg, params),
+        "Stage2Trainer": lambda: train.Stage2Trainer(cfg, params),
+        "Stage3Trainer": lambda: train.Stage3Trainer(cfg, params),
+        "cli train": lambda: cli.main(["train", "--stage", "3"]),
+        "cli verify": lambda: cli.main(["verify"]),
         "Server": lambda: serve.Server(cfg, params),
         "run_verification": lambda: verify.run_verification(),
     }
