@@ -89,7 +89,15 @@ Phases, one line each with its seconds:
                   card against fp32 on the CPU at 8 requests;
  17. profile    — the same breakdown for one 256-request call;
  18. verify     — the numerics gate, acceptance level 1
-                  (``run_verification(max_frames=256, device="cuda")``).
+                  (``run_verification(max_frames=256, device="cuda")``);
+ 19. acceptance — acceptance level 2 at full size (batch 8 x 1024 frames,
+                  1-step, mel only, bf16) through ``run_acceptance``: ms
+                  per call, audio-s/s, peak memory and the launches per
+                  call; then the port's commands in this process: ``accept
+                  --level 0`` (levels 1-5, every report's keys, finite
+                  numbers and gates), ``synth --ref`` a 1 s 16 kHz tone
+                  with ``--wav-out`` (into ``chiprun_out/``) and ``bench``
+                  (its one line).
 Phase 3 also holds the training kernels (rows 3-5: the local-attention
 forward with its log-sum-exp and the dq, dk/dv backward, with the
 cotangent zeroed past the length as the decoder does and live there, and
@@ -132,11 +140,12 @@ import argparse
 import ctypes
 import dataclasses
 import importlib.util
+import io
 import json
 import subprocess
 import sys
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, redirect_stdout
 from pathlib import Path
 
 import numpy as np
@@ -147,6 +156,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 from styletts_zs_torch.config import (Config, ModelConfig,  # noqa: E402
                                       RuntimeConfig, ServeConfig,
                                       load_config)
+from styletts_zs_torch import cli  # noqa: E402
+from styletts_zs_torch.bench import mel_mae  # noqa: E402
 from styletts_zs_torch.kernels import adain_conv as ac_kernel  # noqa: E402
 from styletts_zs_torch.kernels import build, dispatch, plain  # noqa: E402
 from styletts_zs_torch.kernels import conv_transpose as ct_kernel  # noqa: E402
@@ -161,6 +172,11 @@ from styletts_zs_torch.ops import conv as conv_ops  # noqa: E402
 from styletts_zs_torch.ops import stft as stft_ops  # noqa: E402
 from styletts_zs_torch.ops.attention import length_mask  # noqa: E402
 from styletts_zs_torch.parallel import bucketing  # noqa: E402
+from styletts_zs_torch.pipelines import acceptance  # noqa: E402
+from styletts_zs_torch.pipelines.acceptance import (  # noqa: E402
+    base_config, run_acceptance, synth_inputs)
+from styletts_zs_torch.pipelines.corpus import (  # noqa: E402
+    read_wav, write_wav)
 from styletts_zs_torch.pipelines.factory import (build_models,  # noqa: E402
                                                  init_params)
 from styletts_zs_torch.pipelines.data import SyntheticDataset  # noqa: E402
@@ -294,8 +310,6 @@ PARITY_SEED = 1
 # than the estimates on the card), so a request of e frames gets about
 # e / 4.3 phonemes, BOS and EOS included.
 SERVE_FRAMES_PER_PHONEME = 4.3
-# The numerics gate: 64 phonemes at ~4 frames each fill most of its 256.
-VERIFY_DURATION_BIAS = float(np.log1p(3.0))
 SOURCES = {
     "local_attention": ("styletts_zs_torch/csrc/local_attention.cu",
                         "styletts_zs_tpu/kernels/attention_kernel.py:35"),
@@ -331,12 +345,6 @@ def phase(name: str):
     t0 = time.perf_counter()
     yield
     print(f"[phase] {name}: {time.perf_counter() - t0:.1f} s", flush=True)
-
-
-def bench_config() -> Config:
-    """``bench.py``'s full-width configuration."""
-    return Config(model=ModelConfig(max_text_len=256, max_frames=1024),
-                  runtime=RuntimeConfig(compute_dtype="bfloat16"))
 
 
 def timed(fn, iters: int = 10, warmup: int = 2) -> tuple[float, float]:
@@ -430,10 +438,7 @@ def phase_device() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device — this script runs "
                          "only on the card")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    smi = acceptance.device_label(torch.device("cuda", 0))
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"devices {torch.cuda.device_count()}")
@@ -918,7 +923,7 @@ def check_full_attention(card: str) -> dict:
 def check_sampler(card: str) -> dict:
     """Euler at step 0 and Heun at step 14 of the 16-step schedule, guidance
     3, on (32, 50, 128) fp32 latents; the denoiser halves as views."""
-    sig = karras_sigmas(bench_config().model.diffusion, 16)
+    sig = karras_sigmas(base_config(full=True).model.diffusion, 16)
     g = torch.Generator(device="cuda").manual_seed(4)
     shape = (32, 50, 128)
     res = {}
@@ -1770,23 +1775,6 @@ def expected_counts(cfg: Config, n_frames: int, *, one_step: bool = True,
     return expect
 
 
-def synth_inputs(cfg: Config, batch: int, device, seed: int = 0):
-    """``bench.py``'s inputs: full-length random phonemes, a 3 s reference
-    mel, and the sampler's initial noise, all from one seed."""
-    m = cfg.model
-    g = torch.Generator().manual_seed(seed)
-    Tt = m.max_text_len
-    ref_frames = 3 * m.audio.sample_rate // m.audio.hop_length
-    phonemes = torch.randint(1, 40, (batch, Tt), generator=g)
-    ref_mel = 0.5 * torch.randn(batch, ref_frames, m.audio.n_mels, generator=g)
-    noise = torch.randn(batch, m.style.n_codes, m.style.d_style, generator=g)
-    return (phonemes.to(device),
-            torch.full((batch,), Tt, dtype=torch.int32, device=device),
-            ref_mel.to(device),
-            torch.full((batch,), ref_frames, dtype=torch.int32, device=device),
-            noise.to(device))
-
-
 def drive_main_path(cfg: Config, fn, inputs, *, device, n_calls: int,
                     one_step: bool = True, n_steps=None,
                     with_vocoder: bool = True, n_frames=None) -> dict:
@@ -1831,15 +1819,8 @@ def drive_main_path(cfg: Config, fn, inputs, *, device, n_calls: int,
             "counts": counts, "per_call": expect, "out": out, "wav": wav}
 
 
-def mel_mae(out, ref_out) -> float:
-    """Masked mel MAE against the reference's frame mask (``bench.py``)."""
-    mask = ref_out.frame_mask.cpu()[..., None].float()
-    diff = (out.mel.float().cpu() - ref_out.mel.float().cpu()).abs() * mask
-    return float(diff.sum() / max(float(mask.sum()) * out.mel.shape[-1], 1.0))
-
-
 def phase_main_path(card: str) -> dict:
-    cfg = bench_config()
+    cfg = base_config(full=True)
     m = cfg.model
     params = init_params(cfg, seed=0, device="cpu")
     params["acoustic"]["duration_predictor.out.bias"].fill_(DURATION_BIAS)
@@ -1960,13 +1941,13 @@ def style_latent(cfg: Config, params, inputs, *, device, n_steps=None,
 
 
 def multistep_config() -> Config:
-    """``bench_config()``'s model with the serve settings of acceptance
+    """The full-width model with the serve settings of acceptance
     config 3, read by the port's own ``load_config``."""
     serve = load_config(str(MULTISTEP_CONFIG)).serve
     if serve.one_step or serve.with_vocoder:
         raise AssertionError(f"{MULTISTEP_CONFIG.name}: expected the "
                              f"multi-step mel path, got {serve}")
-    return dataclasses.replace(bench_config(), serve=serve)
+    return dataclasses.replace(base_config(full=True), serve=serve)
 
 
 def phase_multistep(card: str, light: bool = False) -> dict:
@@ -2057,7 +2038,7 @@ def longform_config() -> Config:
         raise AssertionError(f"{LONGFORM_CONFIG.name}: expected level 4, got "
                              f"{sv}, max_frames {m.max_frames}")
     return dataclasses.replace(cfg, model=dataclasses.replace(
-        m, max_text_len=bench_config().model.max_text_len))
+        m, max_text_len=base_config(full=True).model.max_text_len))
 
 
 def phase_longform(card: str) -> dict:
@@ -2126,9 +2107,9 @@ def phase_longform(card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 def train_config() -> Config:
-    """``bench_config()``'s model (147.6 M parameters, 256 phonemes) with
+    """The full-width model (147.6 M parameters, 256 phonemes) with
     ``TrainConfig``'s defaults: batch 16, dropout 0.1, bf16 compute."""
-    return bench_config()
+    return base_config(full=True)
 
 
 def train_expected_counts(cfg: Config, n_frames: int) -> dict:
@@ -2804,17 +2785,13 @@ def verify_expected_counts(cfg: Config, n_frames: int) -> dict:
 
 def phase_verify(card: str) -> dict:
     """Level 1 at full size: ``run_verification(max_frames=256, batch=1,
-    device="cuda")``, with the duration head's bias set so the 64 phonemes
-    fill most of the 256 frames; its report, no plain version on the card,
+    device="cuda")``, whose default weights set the duration head's bias so
+    the 64 phonemes fill most of the 256 frames; its report, no plain version on the card,
     the launches of its two card runs, and its gates."""
     cfg = Config(model=ModelConfig(max_text_len=64, max_frames=256),
                  runtime=RuntimeConfig(compute_dtype="float32"))
-    params = init_params(cfg, seed=0, device="cpu")
-    params["acoustic"]["duration_predictor.out.bias"].fill_(
-        VERIFY_DURATION_BIAS)
     reset_counts()
-    rep = run_verification(max_frames=256, batch=1, device="cuda",
-                           params=params)
+    rep = run_verification(max_frames=256, batch=1, device="cuda")
     counts = kernel_counts(torch.device("cuda"))
     check_no_plain_on_card("verify")
     check_counts("verify", counts, verify_expected_counts(cfg, 256), 2)
@@ -2826,6 +2803,187 @@ def phase_verify(card: str) -> dict:
             and rep["fp32_kernels"]["dur_match"] == 1.0):
         raise AssertionError(f"verify: gate failed {rep}")
     return {"counts": counts, "n_calls": 2}
+
+
+# ---------------------------------------------------------------------------
+# phase 19: acceptance levels and the synth, accept and bench commands
+# ---------------------------------------------------------------------------
+
+# The report keys of JAX's acceptance levels 2-5
+# (``styletts_zs_tpu/pipelines/acceptance.py``) and of the port's level 1
+# (``pipelines/verify.py``: JAX's keys with the variants under the port's
+# names, and the golden's frames), and of ``bench.py``'s line, each with
+# "device"; tests/test_torch_acceptance.py and tests/test_torch_cli.py hold
+# them against JAX's.
+_SYNTH_KEYS = frozenset({
+    "config", "batch", "n_frames", "one_step", "with_vocoder",
+    "wall_s_per_call", "wall_s_per_call_spread", "audio_s_per_s",
+    "rtf_target_10x", "mel_finite", "device"})
+ACCEPT_KEYS = {
+    1: frozenset({"config", "backend", "device", "n_frames", "batch",
+                  "golden_frames", "fp32_kernels", "bf16_kernels",
+                  "bf16_plain", "pass_fp32", "pass_bf16"}),
+    2: _SYNTH_KEYS, 3: _SYNTH_KEYS, 4: _SYNTH_KEYS | {"wav_finite"},
+    5: frozenset({"config", "n_requests", "completed", "requeued", "mesh",
+                  "bundle", "plan_batches", "served_batches",
+                  "plan_matches_served", "style_table_shape", "wall_s",
+                  "audio_s_per_s_incl_compile", "device"})}
+BENCH_KEYS = frozenset({"metric", "value", "unit", "vs_baseline",
+                        "rtf_batch1", "mel_mae_vs_fp32_golden", "device"})
+SYNTH_TEXT = "the quick brown fox jumps over the lazy dog"
+
+
+def _numbers(x):
+    """Every number in a JSON value (booleans are not numbers here)."""
+    if isinstance(x, dict):
+        for v in x.values():
+            yield from _numbers(v)
+    elif isinstance(x, list):
+        for v in x:
+            yield from _numbers(v)
+    elif isinstance(x, (int, float)) and not isinstance(x, bool):
+        yield x
+
+
+def check_accept_report(level: int, rep: dict) -> None:
+    """Fail unless level ``level``'s report has its keys, only finite
+    numbers, and passes: level 1's gates, finite outputs for levels 2-4,
+    level 5 with every request served as planned and none requeued."""
+    if set(rep) != ACCEPT_KEYS[level]:
+        raise AssertionError(f"level {level} report keys {sorted(rep)}, "
+                             f"expected {sorted(ACCEPT_KEYS[level])}")
+    if not np.isfinite(list(_numbers(rep))).all():
+        raise AssertionError(f"level {level}: a number is not finite {rep}")
+    if level == 1:
+        ok = rep["pass_fp32"] and rep["pass_bf16"]
+    elif level == 5:
+        ok = (rep["plan_matches_served"] is True and rep["requeued"] == 0
+              and rep["completed"] == rep["n_requests"])
+    else:
+        ok = rep["mel_finite"] and rep.get("wav_finite", True) and \
+            rep["wall_s_per_call"] > 0
+    if not ok:
+        raise AssertionError(f"level {level} failed: {rep}")
+
+
+def check_bench_line(rec: dict) -> None:
+    """Fail unless ``bench``'s line has its keys, a positive finite
+    throughput and RTF, and a finite MAE (0 where no frame was emitted)."""
+    if set(rec) != BENCH_KEYS or \
+            rec["metric"] != "audio_s_per_s_per_chip_batch32_1step":
+        raise AssertionError(f"bench line {rec}")
+    for k in ("value", "vs_baseline", "rtf_batch1"):
+        if not (np.isfinite(rec[k]) and rec[k] > 0):
+            raise AssertionError(f"bench {k} = {rec[k]}")
+    if not (np.isfinite(rec["mel_mae_vs_fp32_golden"])
+            and rec["mel_mae_vs_fp32_golden"] >= 0):
+        raise AssertionError(f"bench mel MAE {rec['mel_mae_vs_fp32_golden']}")
+
+
+def cli_stdout(argv: list[str]) -> str:
+    """``python -m styletts_zs_torch.cli *argv`` in this process: what it
+    printed."""
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        cli.main(argv)
+    return buf.getvalue()
+
+
+def phase_acceptance(card: str) -> dict:
+    """(a) Level 2 at full size on the card (batch 8 x 1024 frames, 1-step,
+    mel only, bf16) through ``run_acceptance``: its launches per call
+    exactly as ``expected_counts`` says, ms per call, audio-s/s and peak
+    memory; (b) ``accept --level 0``: all five levels' reports; (c) ``synth
+    --ref`` a 1 s 16 kHz tone, ``--wav-out``: the mel and the 16-bit wav
+    (under ``chiprun_out/``), with the launches of one synthesis call; (d)
+    ``bench``: its line.  No plain version on the card after each."""
+    cuda = torch.device("cuda")
+    cfg = base_config(full=True)
+    expect = expected_counts(cfg, cfg.model.max_frames, one_step=True,
+                             with_vocoder=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    rep = run_acceptance(2, device="cuda")
+    counts = kernel_counts(cuda)
+    check_no_plain_on_card("acceptance level 2")
+    n_calls = 1 + acceptance.N_TIMED
+    check_counts("level-2", counts, expect, n_calls)
+    check_accept_report(2, rep)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    lo, hi = rep["wall_s_per_call_spread"]
+    print(f"  level 2 (batch {rep['batch']} x {rep['n_frames']} frames, "
+          f"1-step, mel only, bf16): {rep['wall_s_per_call'] * 1e3:.2f} "
+          f"ms/call (median of {acceptance.N_TIMED}, min {lo * 1e3:.2f}, max "
+          f"{hi * 1e3:.2f}), {rep['audio_s_per_s']:.1f} audio-s/s, peak "
+          f"memory {peak_gb:.2f} GB, kernel launches per call "
+          f"{ {k: n // n_calls for k, n in counts.items() if n} } "
+          f"(expected {expect}), no plain version on the card  [{card}]")
+    if rep["device"] != card:
+        raise AssertionError(f"level 2 device {rep['device']!r} vs {card!r}")
+    res = {"counts": counts, "n_calls": n_calls}
+
+    reset_counts()
+    t0 = time.perf_counter()
+    report = json.loads(cli_stdout(["accept", "--level", "0"]))
+    check_no_plain_on_card("accept --level 0")
+    if sorted(report) != [f"level_{lv}" for lv in range(1, 6)]:
+        raise AssertionError(f"accept --level 0: {sorted(report)}")
+    for lv in range(1, 6):
+        check_accept_report(lv, report[f"level_{lv}"])
+    l1, l5 = report["level_1"], report["level_5"]
+    synth = "; ".join(
+        f"level {lv} {r['wall_s_per_call'] * 1e3:.2f} ms/call, "
+        f"{r['audio_s_per_s']:.1f} audio-s/s"
+        for lv, r in ((lv, report[f"level_{lv}"]) for lv in (2, 3, 4)))
+    print(f"  accept --level 0 ({time.perf_counter() - t0:.1f} s): level 1 "
+          f"fp32 mel MAE {l1['fp32_kernels']['mel_mae']:.2e}, bf16 "
+          f"{l1['bf16_kernels']['mel_mae']:.5f}; {synth}; level 5 "
+          f"{l5['n_requests']} requests in {l5['wall_s']:.3f} s, plan {l5['plan_batches']} = served, requeued 0; no plain "
+          f"version on the card  [{card}]")
+
+    out = REPO / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    sr_ref = 16000
+    t = np.arange(sr_ref) / sr_ref
+    write_wav(str(out / "ref_tone_16k.wav"), 0.5 * np.sin(2 * np.pi * 220 * t),
+              sr_ref)
+    syn_cfg = Config()
+    reset_counts()
+    cli_stdout(["synth", "--text", SYNTH_TEXT, "--ref",
+                str(out / "ref_tone_16k.wav"), "--out", str(out / "synth.npy"),
+                "--wav-out", str(out / "synth.wav")])
+    counts = kernel_counts(cuda)
+    check_no_plain_on_card("synth --ref")
+    check_counts("synth", counts, expected_counts(
+        syn_cfg, syn_cfg.model.max_frames), 1)
+    mel = np.load(out / "synth.npy")
+    wav, sr = read_wav(str(out / "synth.wav"))
+    m = syn_cfg.model
+    n_samples = ((m.max_frames * int(np.prod(m.vocoder.upsample_rates)) - 1)
+                 * m.vocoder.istft_hop)
+    if mel.shape != (m.max_frames, m.audio.n_mels) or \
+            not np.isfinite(mel).all() or sr != m.audio.sample_rate or \
+            wav.shape != (n_samples,):
+        raise AssertionError(f"synth: mel {mel.shape}, wav {wav.shape} at "
+                             f"{sr} Hz")
+    print(f"  synth --ref (1 s at 16 kHz): mel {mel.shape} finite, "
+          f"{wav.shape[0]} samples of 16-bit audio at {sr} Hz (peak "
+          f"{np.abs(wav).max():.3f}), launches {counts}; no plain version "
+          f"on the card")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    lines = cli_stdout(["bench"]).strip().splitlines()
+    check_no_plain_on_card("bench")
+    if len(lines) != 1:
+        raise AssertionError(f"bench printed {lines}")
+    rec = json.loads(lines[0])
+    check_bench_line(rec)
+    print(f"  bench ({time.perf_counter() - t0:.1f} s): {lines[0]}")
+    if rec["device"] != card:
+        raise AssertionError(f"bench device {rec['device']!r} vs {card!r}")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -3173,7 +3331,7 @@ def phase_against_parent(parent: str, card: str) -> dict:
         cases.append((f"row 7 train_b16 B16 T1024 d{d}", _launch_adain_bwd,
                       (dc, *args, d), ac_kernel.adain_conv_bwd_data_plain(
                           dc, *args, dilation=d)))
-    sig = karras_sigmas(bench_config().model.diffusion, 16)
+    sig = karras_sigmas(base_config(full=True).model.diffusion, 16)
     x = torch.randn(32, 50, 128, generator=g, device="cuda") * float(sig[0])
     den2 = torch.randn(64, 50, 128, generator=g, device="cuda")
     dc, du = den2[:32], den2[32:]
@@ -3401,6 +3559,8 @@ def main() -> None:
                       "serve 256 requests (mel)")
     with phase("verify"):
         verify = phase_verify(card)
+    with phase("acceptance"):
+        accept = phase_acceptance(card)
     paths = {"one_step": (main_res["counts"], main_res["n_calls"]),
              "multi_step": (multi["counts"], multi["n_calls"]),
              "long_form": (lf["counts"], lf["n_calls"]),
@@ -3410,6 +3570,7 @@ def main() -> None:
              "train_stage3": (stage3["counts"], stage3["n_calls"]),
              **{name: (r["counts"], r["n_calls"]) for name, r in serve.items()},
              "verify": (verify["counts"], verify["n_calls"]),
+             "acceptance_level2": (accept["counts"], accept["n_calls"]),
              "istft_head": (istft_head["counts"], istft_head["n_calls"])}
     kernels = []
     for name, c in checks.items():

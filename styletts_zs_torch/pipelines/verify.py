@@ -13,11 +13,19 @@ weights, phonemes, style and durations:
 Each reports the masked mel MAE, the mel max error, the waveform MAE and
 the share of durations equal to the golden's; ``pass_fp32`` holds the fp32
 variant's mel MAE under 1e-3 and ``pass_bf16`` the bf16 one under 1e-1.
-The weights are the port's ``init_params(seed)`` unless ``params`` are
-given; the inputs come from a generator seeded ``seed + 1``.
+The weights are the port's ``init_params(seed)`` with the duration head's
+bias at ``DURATION_BIAS`` (about 4 frames a phoneme, so the golden fills
+most of its frames) unless ``params`` are given; the inputs come from a
+generator seeded ``seed + 1``.  Seeded weights alone can give an utterance
+of a frame or two, where the gate would measure the model's conditioning
+and not the kernels: at one frame the fp32 CPU path itself moves by a
+mel MAE of ~1e-3 against fp64 and across thread counts, against ~3e-6 at
+full length (``tests/test_torch_verify.py`` shows both).  So a golden
+shorter than ``MIN_GOLDEN_SHARE`` of ``max_frames`` raises.
 """
 from __future__ import annotations
 
+import math
 from contextlib import contextmanager, nullcontext
 
 import numpy as np
@@ -27,6 +35,9 @@ from styletts_zs_torch.config import Config, ModelConfig, RuntimeConfig
 from styletts_zs_torch.ops.attention import length_mask
 from styletts_zs_torch.pipelines.factory import (build_models, init_params,
                                                  resolve_device)
+
+DURATION_BIAS = math.log1p(3.0)
+MIN_GOLDEN_SHARE = 0.5
 
 
 def _run(cfg: Config, params, phonemes, text_lengths, style, durations,
@@ -70,6 +81,8 @@ def run_verification(*, max_frames: int = 256, batch: int = 1, seed: int = 0,
                         runtime=RuntimeConfig(compute_dtype="float32"))
     if params is None:
         params = init_params(golden_cfg, seed=seed, device="cpu")
+        params["acoustic"]["duration_predictor.out.bias"].fill_(
+            DURATION_BIAS)
 
     g = torch.Generator().manual_seed(seed + 1)
     phonemes = torch.randint(1, 40, (batch, 64), generator=g)
@@ -81,12 +94,18 @@ def run_verification(*, max_frames: int = 256, batch: int = 1, seed: int = 0,
     golden_out, golden_wav = _run(golden_cfg, params, phonemes, text_lengths,
                                   style, None, max_frames, device="cpu")
     durations = golden_out.durations
+    golden_frames = golden_out.frame_lengths.tolist()
+    if min(golden_frames) < MIN_GOLDEN_SHARE * max_frames:
+        raise ValueError(
+            f"the golden fills {golden_frames} of {max_frames} frames, under "
+            f"{MIN_GOLDEN_SHARE:g} of them: too short an utterance to gate "
+            f"the kernels with")
 
     report = {"backend": dev.type,
               "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                          else "cpu"),
               "n_frames": int(max_frames), "batch": int(batch),
-              "golden_frames": golden_out.frame_lengths.tolist()}
+              "golden_frames": golden_frames}
     variants = {"fp32_kernels": ("float32", dev),
                 "bf16_kernels": ("bfloat16", dev),
                 "bf16_plain": ("bfloat16", torch.device("cpu"))}

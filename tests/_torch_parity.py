@@ -102,14 +102,63 @@ def write_tiny_config(directory: Path) -> Path:
 def run_cli(args: list[str], config: Path, workdir: Path):
     """``python -m styletts_zs_torch.cli train`` with ``args`` in a fresh
     process on one thread, no card visible."""
+    return run_module("styletts_zs_torch.cli",
+                      ["train", *args, "--config", str(config),
+                       "--workdir", str(workdir)])
+
+
+def jax_synth_report(level: int, monkeypatch):
+    """JAX's level-``level`` report from its own ``_synth_report``, with
+    ``init_params``, the program and ``_measure`` stubbed: (report, the
+    keyword arguments its program was made with)."""
+    import styletts_zs_tpu.pipelines.factory as j_factory
+    import styletts_zs_tpu.pipelines.infer as j_infer
+    from styletts_zs_tpu.pipelines import acceptance as j_acc
+
+    made = {}
+
+    class Out:
+        def __init__(self, batch, n_frames, n_mels):
+            self.mel = np.zeros((batch, n_frames, n_mels), np.float32)
+
+    def make_synthesis_fn(cfg, **kw):
+        made.update(kw, n_mels=cfg.model.audio.n_mels)
+        return lambda *args: None
+
+    def measure(fn, args):
+        B = args[1].shape[0]
+        wav = np.zeros((B, 100), np.float32) if made["with_vocoder"] else None
+        return (Out(B, made["n_frames"], made["n_mels"]), wav), 1.0, (1.0, 1.0)
+
+    monkeypatch.setattr(j_factory, "init_params", lambda cfg, rng: None)
+    monkeypatch.setattr(j_infer, "make_synthesis_fn", make_synthesis_fn)
+    monkeypatch.setattr(j_acc, "_measure", measure)
+    return j_acc.run_acceptance(level, full_size=False), made
+
+
+def load_chip_smoke():
+    """``chip_smoke.py`` as a module (its checks, rehearsed on the CPU)."""
+    import importlib.util
+    repo = Path(__file__).resolve().parent.parent
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  repo / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_module(module: str, args: list[str], *, timeout: int = 300):
+    """``python -m module args`` in a fresh process on one thread, no card
+    visible, JAX on the CPU at full fp32 precision."""
     repo = Path(__file__).resolve().parent.parent
     env = dict(os.environ, PYTHONPATH=str(repo), CUDA_VISIBLE_DEVICES="",
-               OMP_NUM_THREADS="1")
-    return subprocess.run(
-        [sys.executable, "-m", "styletts_zs_torch.cli", "train", *args,
-         "--config", str(config), "--workdir", str(workdir)],
-        cwd=repo, env=env, capture_output=True, text=True, timeout=300)
+               OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu",
+               JAX_DEFAULT_MATMUL_PRECISION="highest")
+    return subprocess.run([sys.executable, "-m", module, *args], cwd=repo,
+                          env=env, capture_output=True, text=True,
+                          timeout=timeout)
 
 
 __all__ = ["jax_tiny", "torch_tiny", "random_tree", "to_jax", "t", "n",
-           "leaf_name", "write_tiny_config", "run_cli"]
+           "leaf_name", "write_tiny_config", "run_cli", "jax_synth_report",
+           "load_chip_smoke", "run_module"]

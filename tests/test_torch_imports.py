@@ -35,7 +35,9 @@ BLOCKED_RUN = textwrap.dedent('''
     assert not torch.cuda.is_available()
     from styletts_zs_torch.config import tiny_test_config
     from styletts_zs_torch import cli
-    from styletts_zs_torch.pipelines import factory, infer, serve, train, verify
+    from styletts_zs_torch import bench
+    from styletts_zs_torch.pipelines import (acceptance, factory, infer,
+                                             serve, train, verify)
     cfg = tiny_test_config()
     params = factory.init_params(cfg, device="cpu", with_discriminator=True)
     calls = {
@@ -49,6 +51,11 @@ BLOCKED_RUN = textwrap.dedent('''
         "Stage3Trainer": lambda: train.Stage3Trainer(cfg, params),
         "cli train": lambda: cli.main(["train", "--stage", "3"]),
         "cli verify": lambda: cli.main(["verify"]),
+        "cli synth": lambda: cli.main(["synth", "--text", "hi"]),
+        "cli accept": lambda: cli.main(["accept", "--level", "0"]),
+        "cli bench": lambda: cli.main(["bench"]),
+        "bench": lambda: bench.main([]),
+        "run_acceptance": lambda: acceptance.run_acceptance(2),
         "Server": lambda: serve.Server(cfg, params),
         "run_verification": lambda: verify.run_verification(),
     }

@@ -6,7 +6,9 @@ fp32 with the XLA twins) with the same weights, phonemes, style and golden
 durations: mel and waveform within 1e-4 (fp32 sums in another order
 through ~20 layers), durations equal.  Then the port's
 ``run_verification(max_frames=64, device="cpu")`` report at full width:
-the fp32 variant passes and takes the golden durations.
+the fp32 variant passes and takes the golden durations.  A golden shorter
+than half its frames raises, and why: at one frame the fp32 CPU path moves
+~1e-3 against fp64, over 50x what it moves at full length.
 """
 import importlib.util
 from pathlib import Path
@@ -21,8 +23,10 @@ from styletts_zs_tpu.models.tts import StyleTTSZS
 from styletts_zs_tpu.ops.attention import length_mask
 from styletts_zs_tpu.pipelines import verify as j_verify
 from styletts_zs_tpu.pipelines.factory import build_models as j_build_models
+from styletts_zs_torch.config import Config, ModelConfig, RuntimeConfig
 from styletts_zs_torch.pipelines import verify
 from styletts_zs_torch.pipelines.convert import convert_params
+from styletts_zs_torch.pipelines.factory import init_params
 
 ATOL = 1e-4
 REPO = Path(__file__).resolve().parent.parent
@@ -109,3 +113,51 @@ def test_chip_smoke_verify_counts_on_cpu(golden):
                       "adain_conv": 4, "synthesis_head": 1,
                       "conv_transpose": 2}
     cs.check_counts("verify", counts, expect, 1)
+
+
+def _gate_config(dtype: str) -> Config:
+    """``run_verification(max_frames=64)``'s model in ``dtype``."""
+    return Config(model=ModelConfig(max_text_len=64, max_frames=64),
+                  runtime=RuntimeConfig(compute_dtype=dtype))
+
+
+def test_run_verification_refuses_a_short_golden():
+    torch.set_num_threads(1)
+    params = init_params(_gate_config("float32"), seed=0, device="cpu")
+    params["acoustic"]["duration_predictor.out.bias"].fill_(-3.0)
+    with pytest.raises(ValueError, match="golden fills"):
+        verify.run_verification(max_frames=64, device="cpu", params=params)
+
+
+def test_one_frame_utterance_is_ill_conditioned():
+    """The fp32 CPU path of the gate's model (seed-0 weights and inputs as
+    ``run_verification`` draws them) against itself in fp64 and on four
+    threads, with the durations handed in: one frame, then every phoneme
+    one frame (64).  Run with ``-s`` to see the numbers."""
+    cfg32 = _gate_config("float32")
+    params = init_params(cfg32, seed=0, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    phonemes = torch.randint(1, 40, (1, 64), generator=g)
+    lengths = torch.full((1,), 64, dtype=torch.int32)
+    style = torch.randn(1, cfg32.model.style.n_codes,
+                        cfg32.model.style.d_style, generator=g) * 0.3
+    drift = {}
+    for frames in (1, 64):
+        durations = torch.zeros(1, 64, dtype=torch.int32)
+        durations[0, :frames] = 1
+        mels = {}
+        for name, dtype, threads in (("fp32", "float32", 1),
+                                     ("fp64", "float64", 1),
+                                     ("threads4", "float32", 4)):
+            torch.set_num_threads(threads)
+            out, _ = verify._run(_gate_config(dtype), params, phonemes,
+                                 lengths, style, durations, 64, device="cpu")
+            assert out.frame_lengths.tolist() == [frames]
+            mels[name] = out.mel[0, :frames].double().numpy()
+        torch.set_num_threads(1)
+        drift[frames] = {k: float(np.abs(mels[k] - mels["fp32"]).mean())
+                         for k in ("fp64", "threads4")}
+    print(f"fp32 CPU mel MAE by frames: {drift}")
+    assert drift[1]["fp64"] > 1e-4
+    assert drift[1]["fp64"] > 50 * drift[64]["fp64"]
+    assert drift[64]["fp64"] < 1e-4
