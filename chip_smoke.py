@@ -79,6 +79,25 @@ Phases, one line each with its seconds:
                   card vs CPU at batch 2 with 4 teacher steps (both decodes'
                   durations equal, the loss terms and gradients gated);
  15. profile    — the same breakdown for one stage-3 step;
+     corpus     — the corpus path at the same width: the port's native
+                  frontend built and taken by ``estimate_f0`` (``featurize``
+                  of one 1024-frame utterance timed on both F0 routes); a
+                  48-utterance, 8-speaker corpus from
+                  ``export_synthetic_corpus`` and a copy without durations;
+                  MAS alone at 16 x 1024 x 256 (durations equal to the
+                  CPU's, ms, launches); the stage-1 step with
+                  ``use_mas_durations`` from the unannotated corpus (batches
+                  of ``make_corpus_loader``, batch 16 x 1024, bf16, dropout
+                  on: ms, loader ms a batch, peak memory, launches per step
+                  as the stage-1 phase's plus the discriminator step's
+                  aligner) and its fp32 card-vs-CPU check on the
+                  train_stage1 phase's batch of 2 (two frame lengths; MAS
+                  durations equal); the five evaluations of
+                  ``pipelines/eval.py`` on a held-out batch of 16 (finite,
+                  ms each) and at batch 2 in fp32 against the CPU (floats
+                  within 1e-3, counts and rates equal); ``train --stage 1
+                  --corpus --steps 2`` with MAS on, its ``stage1_final``
+                  loaded back;
  16. serve      — acceptance level 5 at full size (``Server``: batch 32,
                   buckets of 256, 512 and 1024 frames, 1-step, mel only,
                   bf16): 256 requests (a warm-up call, the median of 5),
@@ -144,6 +163,7 @@ import io
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from contextlib import contextmanager, redirect_stdout
 from pathlib import Path
@@ -175,18 +195,25 @@ from styletts_zs_torch.parallel import bucketing  # noqa: E402
 from styletts_zs_torch.pipelines import acceptance  # noqa: E402
 from styletts_zs_torch.pipelines.acceptance import (  # noqa: E402
     base_config, run_acceptance, synth_inputs)
+from styletts_zs_torch.native import frontend as native_frontend  # noqa: E402
+from styletts_zs_torch.pipelines import corpus as corpus_lib  # noqa: E402
+from styletts_zs_torch.pipelines import eval as eval_lib  # noqa: E402
+from styletts_zs_torch.pipelines.checkpoint import load_params  # noqa: E402
 from styletts_zs_torch.pipelines.corpus import (  # noqa: E402
     read_wav, write_wav)
 from styletts_zs_torch.pipelines.factory import (build_models,  # noqa: E402
                                                  init_params)
 from styletts_zs_torch.pipelines.data import SyntheticDataset  # noqa: E402
 from styletts_zs_torch.pipelines.infer import make_synthesis_fn  # noqa: E402
+from styletts_zs_torch.pipelines.preprocess import (  # noqa: E402
+    Utterance, collate, featurize)
 from styletts_zs_torch.pipelines.serve import Request, Server  # noqa: E402
-from styletts_zs_torch.pipelines.train import (Stage1Trainer,  # noqa: E402
-                                               Stage2Trainer, Stage3Trainer,
-                                               batch_to_device)
+from styletts_zs_torch.pipelines.train import (G_PARTS,  # noqa: E402
+                                               Stage1Trainer, Stage2Trainer,
+                                               Stage3Trainer, batch_to_device)
 from styletts_zs_torch.pipelines.verify import (  # noqa: E402
     _run as run_with_durations, run_verification)
+from styletts_zs_torch.utils import audio as audio_utils  # noqa: E402
 from styletts_zs_torch.utils import text as text_utils  # noqa: E402
 
 REPO = Path(__file__).resolve().parent
@@ -2120,7 +2147,8 @@ def train_expected_counts(cfg: Config, n_frames: int) -> dict:
     the training kernels (rows 3-5 per attention block; row 6 twice and row
     7 twice per AdaIN block); the vocoder's transposed convs and head.  The
     discriminator step: the generator's forward under no_grad (row 1, row 6
-    twice per block, the vocoder), without the aligner."""
+    twice per block, the vocoder), with the aligner's text encoder only
+    when MAS recomputes the durations (``use_mas_durations``)."""
     m, t = cfg.model, cfg.train
     d, v = m.decoder, m.vocoder
     n_attn = sum(1 for i in range(d.n_blocks) if (i + 1) % d.attn_every == 0)
@@ -2129,11 +2157,13 @@ def train_expected_counts(cfg: Config, n_frames: int) -> dict:
     views = 0
     if t.w_spk > 0:
         views = 2 + (t.w_spk_rec > 0) + (t.w_spk_voc > 0)
-    g_full = ((m.text_encoder.n_attn_layers if t.w_align > 0 else 0)
+    aligner = m.text_encoder.n_attn_layers
+    g_full = ((aligner if t.w_align > 0 or t.use_mas_durations else 0)
               + enc + ext
               + views * (m.prompt_encoder.n_layers + 1)
               + (ext if t.w_fsq_entropy > 0 else 0))
-    expect = {"full_attention": g_full + enc + ext,
+    d_full = (aligner if t.use_mas_durations else 0) + enc + ext
+    expect = {"full_attention": g_full + d_full,
               "adain_conv": 4 * d.n_blocks,
               "adain_conv_bwd_data": 2 * d.n_blocks,
               "conv_transpose": 2 * len(v.upsample_rates),
@@ -2204,8 +2234,9 @@ def _no_dropout(cfg: Config) -> Config:
 
 def train_parity_run(cfg: Config, params, nb, device) -> dict:
     """One fp32 generator and discriminator loss with their gradients on
-    ``device``, the FSQ codes of the ground-truth mel and the predicted
-    durations, at the initial weights."""
+    ``device``, the FSQ codes of the ground-truth mel, the predicted
+    durations and (with ``use_mas_durations``) MAS's, at the initial
+    weights."""
     tr = Stage1Trainer(cfg, params, device=device)
     state = tr.init_state(params)
     batch = batch_to_device(nb, device)
@@ -2214,6 +2245,8 @@ def train_parity_run(cfg: Config, params, nb, device) -> dict:
     _, d_aux, d_grads = tr.d_grads(batch)
     ac, m = tr.acoustic, cfg.model
     with torch.no_grad():
+        mas = (tr._forward_g(batch, None)[6].cpu()
+               if cfg.train.use_mas_durations else None)
         n_frames = batch["f0"].shape[1]
         mel = stft_ops.mel_spectrogram(batch["wav"], m.audio)[:, :n_frames]
         frame_mask = length_mask(batch["frame_lengths"], n_frames)
@@ -2229,15 +2262,17 @@ def train_parity_run(cfg: Config, params, nb, device) -> dict:
                          for k, v in cpu(sd).items()},
                       **{f"discriminator.{k}": v
                          for k, v in cpu(d_grads).items()}},
-            "indices": indices.cpu(), "durations": durations.cpu()}
+            "indices": indices.cpu(), "durations": durations.cpu(),
+            "mas": mas}
 
 
 def check_train_parity(card: str, cfg: Config, params) -> None:
     """fp32 on the card (the kernels, TF32 off) against fp32 on the CPU
     (the plain versions), dropout 0, full width, batch 2 x 1024 frames with
-    two different frame lengths: FSQ codes and predicted durations equal,
-    each loss term within LOSS_RTOL, each gradient tensor within GRAD_RTOL
-    of its largest value (plus GRAD_FLOOR of its model's largest)."""
+    two different frame lengths: FSQ codes, predicted durations and (with
+    ``use_mas_durations``) MAS's equal, each loss term within LOSS_RTOL,
+    each gradient tensor within GRAD_RTOL of its largest value (plus
+    GRAD_FLOOR of its model's largest)."""
     cfg32 = dataclasses.replace(_no_dropout(cfg), runtime=RuntimeConfig(
         compute_dtype="float32"))
     nb = train_batch(cfg, 2, PARITY_SEED)
@@ -2256,10 +2291,16 @@ def check_train_parity(card: str, cfg: Config, params) -> None:
     if not torch.equal(got["durations"], ref["durations"]):
         raise AssertionError("fp32 train step: predicted durations differ "
                              "from the CPU's")
+    mas = ""
+    if cfg.train.use_mas_durations:
+        if not torch.equal(got["mas"], ref["mas"]):
+            raise AssertionError("fp32 train step: MAS durations differ from "
+                                 "the CPU's")
+        mas = " MAS durations equal;"
     gate_losses_and_grads(
         f"fp32 card vs fp32 CPU plain path, batch 2 x {TRAIN_FRAMES} frames "
         f"(frame lengths {nb.frame_lengths.tolist()}), dropout 0: FSQ codes "
-        f"equal, predicted durations equal;", got, ref, t_cpu, card)
+        f"equal, predicted durations equal;{mas}", got, ref, t_cpu, card)
 
 
 def gate_losses_and_grads(head: str, got: dict, ref: dict, t_cpu: float,
@@ -2344,6 +2385,7 @@ def run_train_phase(card: str, cfg: Config, trainer, state, batch,
     report_train(cfg, r, n_steps, label, card)
     step_state = r["state"]
     return {"counts": r["counts"], "n_calls": n_steps,
+            "seconds": r["seconds"],
             "fn": lambda: trainer.train_step(step_state, batch),
             "inputs": ()}
 
@@ -2543,6 +2585,345 @@ def phase_train_stage3(card: str) -> dict:
         lambda dev: Stage3Trainer(cfg32, params, device=dev,
                                   n_teacher_steps=STAGE3_PARITY_STEPS),
         params, {"noise": noise})
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the corpus path: the native frontend, MAS, the stage-1 step from an
+# unannotated corpus, the evaluations and ``train --corpus``
+# ---------------------------------------------------------------------------
+
+# export_synthetic_corpus's corpus: 48 utterances of 8 speakers, each 1024
+# frames (12.8 s) and up to 256 phonemes; the loaders split it into three
+# shards of 16, one for training and one held out for the evaluations.
+CORPUS_UTTS, CORPUS_SPEAKERS, CORPUS_SHARDS = 48, 8, 3
+MAS_RUNS = 5
+# The evaluations, fp32 on the card (TF32 off) against fp32 on the CPU at
+# batch 2 on the same inputs and noise: every float metric (means over a
+# 1024-frame decode or a style latent, rounded to at most 5 decimals, and
+# the similarity of two embeddings) within EVAL_ATOL, as FP32_PATH_TOL holds
+# the mel; the counts and rates (durations, FSQ codes, retrievals) equal.
+EVAL_ATOL = 1e-3
+EVAL_EXACT = frozenset({"dur_mae_frames", "dur_exact_match",
+                        "fsq_code_match_rate", "style_latent_mse_seeds",
+                        "retrieval_acc", "retrieval_chance"})
+
+
+def export_corpora(cfg: Config, root: Path) -> tuple[str, str]:
+    """``export_synthetic_corpus`` at ``TRAIN_FRAMES`` and ``TRAIN_TEXT``
+    into ``root/annotated``, and ``root/unannotated``: the same wavs with
+    every ``"durations"`` key dropped from the metadata (the case MAS
+    exists for)."""
+    ann, una = root / "annotated", root / "unannotated"
+    corpus_lib.export_synthetic_corpus(
+        str(ann), cfg.model, n_utts=CORPUS_UTTS, n_speakers=CORPUS_SPEAKERS,
+        n_frames=TRAIN_FRAMES, text_len=TRAIN_TEXT, seed=0)
+    una.mkdir()
+    (una / "wavs").symlink_to(ann / "wavs")
+    recs = [json.loads(x) for x in
+            (ann / "metadata.jsonl").read_text().splitlines() if x]
+    for rec in recs:
+        del rec["durations"]
+    (una / "metadata.jsonl").write_text(
+        "".join(json.dumps(r) + "\n" for r in recs))
+    return str(ann), str(una)
+
+
+def check_frontend(cfg: Config, root: str, card: str) -> None:
+    """Fail unless F0 takes the port's native library; print the ms of
+    ``featurize`` on one 1024-frame utterance on the native and the numpy
+    route and their F0 agreement."""
+    if not native_frontend.available() or \
+            audio_utils._native() is not native_frontend:
+        raise AssertionError("the native frontend is not built or not the "
+                             "route of estimate_f0")
+    m = cfg.model
+    src = corpus_lib.DiskCorpus(root, m, n_frames=TRAIN_FRAMES,
+                                text_len=TRAIN_TEXT)
+    e = src.entries[0]
+    utt = Utterance(e.phonemes, src._load_wav(e.wav_path), e.durations)
+    hop, fl = m.audio.hop_length, min(m.audio.win_length,
+                                      4 * m.audio.hop_length)
+
+    def feat_ms():
+        ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            featurize(utt, m, n_frames=TRAIN_FRAMES, text_len=TRAIN_TEXT)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ms))
+
+    native_ms = feat_ms()
+    f0_cc, v_cc = audio_utils.estimate_f0(utt.wav, m.audio.sample_rate,
+                                          hop=hop, frame_length=fl)
+    route = audio_utils._native
+    audio_utils._native = lambda: None      # the numpy twin
+    try:
+        numpy_ms = feat_ms()
+        f0_np, v_np = audio_utils.estimate_f0(utt.wav, m.audio.sample_rate,
+                                              hop=hop, frame_length=fl)
+    finally:
+        audio_utils._native = route
+    both = v_cc & v_np
+    rel = np.abs(f0_cc[both] - f0_np[both]) / f0_np[both]
+    print(f"  native frontend {native_frontend.library_path().name}; "
+          f"featurize one {TRAIN_FRAMES}-frame utterance: native "
+          f"{native_ms:.1f} ms, numpy {numpy_ms:.1f} ms (median of 3); F0 "
+          f"voicing agrees on {100 * (v_cc == v_np).mean():.1f} % of "
+          f"{len(v_cc)} frames, F0 on both-voiced frames within "
+          f"{rel.max():.2e} relative (host: the card machine's CPU)  [{card}]")
+
+
+def _profiled_launches(fn) -> int:
+    """Device kernel events of one call of ``fn`` under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def check_mas(trainer, batch, card: str) -> None:
+    """MAS alone at the step's lattice: fp32 energies of the aligner's
+    forward on a corpus batch; the card's durations equal to the CPU's on
+    the same energies and summing to the frame lengths; the median ms of
+    ``MAS_RUNS`` runs and the launches of one."""
+    ac, m = trainer.acoustic, trainer.cfg.model
+    with torch.no_grad():
+        n_frames = batch["f0"].shape[1]
+        mel = stft_ops.mel_spectrogram(batch["wav"], m.audio)[:, :n_frames]
+        text_mask = length_mask(batch["text_lengths"],
+                                batch["phonemes"].shape[1])
+        energies = ac.align_energies(
+            ac.text_encoder(batch["phonemes"], mask=text_mask), mel,
+            text_mask=text_mask)
+    if energies.dtype != torch.float32:
+        raise AssertionError(f"aligner energies {energies.dtype}")
+    tl, fl = batch["text_lengths"], batch["frame_lengths"]
+
+    def run():
+        return align_ops.monotonic_alignment_search(energies, tl, fl)
+    run()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(MAS_RUNS):
+        t0 = time.perf_counter()
+        dur = run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    n_launch = _profiled_launches(run)
+    ref = align_ops.monotonic_alignment_search(energies.cpu(), tl.cpu(),
+                                               fl.cpu())
+    if not torch.equal(dur.cpu(), ref):
+        raise AssertionError(f"MAS: the card's durations differ from the "
+                             f"CPU's in {(dur.cpu() != ref).sum().item()} "
+                             f"places")
+    if not torch.equal(ref.sum(1), fl.cpu().to(torch.int32)):
+        raise AssertionError("MAS durations do not sum to the frame lengths")
+    B, T, N = energies.shape
+    print(f"  MAS alone ({B} x {T} frames x {N} phonemes, fp32 energies of "
+          f"the aligner on a corpus batch): {np.median(times):.1f} ms "
+          f"(median of {MAS_RUNS}, min {min(times):.1f}, max "
+          f"{max(times):.1f}), {n_launch} kernel launches a run; durations "
+          f"equal to the CPU's, summing to the frame lengths  [{card}]")
+
+
+def eval_calls(cfg: Config, params, batch, spk, noise, *, device,
+               n_steps=None) -> tuple[dict, dict]:
+    """The five evaluations on ``device``: ``evaluate_acoustic`` and
+    ``fsq_usage_stats`` on ``batch``, ``speaker_similarity_margin`` of
+    ``spk``'s wavs against its references (one utterance of each speaker),
+    ``evaluate_diffusion`` (2 seeds, guidance 1) and
+    ``evaluate_distill_gap`` (the denoiser as teacher and student) on
+    ``noise``; ``n_steps`` the samplers' (default the config's).  Returns
+    (reports, ms of each call)."""
+    g = {"acoustic": params["acoustic"], "vocoder": params["vocoder"]}
+    ac, df = params["acoustic"], params["diffusion"]
+    calls = {
+        "evaluate_acoustic": lambda: eval_lib.evaluate_acoustic(
+            cfg, g, batch, device=device),
+        "fsq_usage_stats": lambda: eval_lib.fsq_usage_stats(
+            cfg, ac, batch, device=device),
+        "speaker_similarity_margin":
+            lambda: eval_lib.speaker_similarity_margin(
+                cfg, ac, spk["wav"], spk["ref_wav"], device=device),
+        "evaluate_diffusion": lambda: eval_lib.evaluate_diffusion(
+            cfg, ac, df, batch, noise["diffusion"], n_steps=n_steps,
+            n_seeds=2, guidance=1.0, device=device),
+        "evaluate_distill_gap": lambda: eval_lib.evaluate_distill_gap(
+            cfg, ac, df, df, batch, noise["distill"],
+            n_teacher_steps=n_steps, device=device)}
+    reps, ms = {}, {}
+    for name, fn in calls.items():
+        t0 = time.perf_counter()
+        reps[name] = fn()
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+    return reps, ms
+
+
+def eval_noise(cfg: Config, batch_size: int, seed: int) -> dict:
+    """The evaluations' initial noise on the CPU: two seeds for
+    ``evaluate_diffusion``, one for ``evaluate_distill_gap``."""
+    s = cfg.model.style
+    g = torch.Generator().manual_seed(seed)
+    draw = lambda: torch.randn(batch_size, s.n_codes, s.d_style,  # noqa: E731
+                               generator=g)
+    return {"diffusion": [draw(), draw()], "distill": draw()}
+
+
+def compare_eval(got: dict, ref: dict) -> float:
+    """Fail unless ``got``'s reports have ``ref``'s keys, the counts and
+    rates (``EVAL_EXACT`` and all of ``fsq_usage_stats``) equal and every
+    other number within ``EVAL_ATOL``; returns the largest float gap."""
+    worst = 0.0
+    for name, rep in ref.items():
+        if set(got[name]) != set(rep):
+            raise AssertionError(f"{name}: keys {sorted(got[name])}")
+        for k, v in rep.items():
+            g = got[name][k]
+            if k in EVAL_EXACT or name == "fsq_usage_stats":
+                if g != v:
+                    raise AssertionError(f"{name} {k}: {g} vs the CPU's {v}")
+                continue
+            worst = max(worst, abs(g - v))
+            if not abs(g - v) <= EVAL_ATOL:
+                raise AssertionError(f"{name} {k}: {g} vs the CPU's {v} "
+                                     f"(tol {EVAL_ATOL})")
+    return worst
+
+
+def speaker_batch(src) -> dict:
+    """One utterance of each speaker of ``src`` (its first), collated."""
+    first = {}
+    for i, e in enumerate(src.entries):
+        first.setdefault(e.speaker, i)
+    return collate([src[i] for i in first.values()])
+
+
+def phase_corpus(card: str) -> dict:
+    """The corpus path at full width (``train_config()``, 147.6 M
+    parameters, seed-0 weights with ``DURATION_BIAS``): (1) the native
+    frontend; (2) the corpus and its unannotated copy; (3) MAS alone at
+    16 x 1024 x 256; (4) the stage-1 step with ``use_mas_durations`` from
+    the unannotated corpus (batch 16 x 1024, bf16, dropout on; batches from
+    ``make_corpus_loader``): one warm-up step and the median of 5 with the
+    launches the stage-1 phase counts plus the discriminator step's
+    aligner, the loader's ms a batch; (5) fp32 card vs CPU on the stage-1
+    phase's parity batch (2 x 1024, two frame lengths) with MAS on: MAS
+    and predicted durations and FSQ codes equal, the loss terms and
+    gradients gated; (6) the evaluations on a held-out batch of 16 (bf16,
+    finite) and at batch 2 in fp32 against the CPU; (7) ``train --stage 1
+    --corpus --steps 2`` with MAS on."""
+    cfg = dataclasses.replace(train_config(), train=dataclasses.replace(
+        train_config().train, use_mas_durations=True))
+    m, t = cfg.model, cfg.train
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ann, una = export_corpora(cfg, Path(tmp))
+        check_frontend(cfg, ann, card)
+
+        loader_ms = []
+
+        def pull(root, shard):
+            it = iter(corpus_lib.make_corpus_loader(
+                root, m, batch_size=t.batch_size, n_frames=TRAIN_FRAMES,
+                text_len=TRAIN_TEXT, seed=0, worker_count=0,
+                shard_index=shard, shard_count=CORPUS_SHARDS))
+            t0 = time.perf_counter()
+            b = next(it)
+            loader_ms.append((time.perf_counter() - t0) * 1e3)
+            return b
+
+        nb = pull(una, 0)                       # the training shard
+        if nb["durations"].any():
+            raise AssertionError("the unannotated corpus gave durations")
+        params = init_params(cfg, seed=0, device="cpu",
+                             with_discriminator=True)
+        params["acoustic"]["duration_predictor.out.bias"].fill_(
+            DURATION_BIAS)
+        trainer = Stage1Trainer(cfg, params, device="cuda", seed=0)
+        batch = batch_to_device(nb, "cuda")
+        check_mas(trainer, batch, card)
+        torch.cuda.synchronize()
+        step = run_train_phase(card, cfg, trainer, trainer.init_state(params),
+                               batch, train_expected_counts(cfg, TRAIN_FRAMES),
+                               "stage-1 step from the unannotated corpus, "
+                               "MAS durations (bf16, dropout on)")
+        res["train"] = step
+        check_train_parity(card, cfg, params)
+        del trainer, batch
+        torch.cuda.empty_cache()
+
+        held = pull(ann, 1)                     # held out from training
+        print(f"  make_corpus_loader (worker_count 0, native F0): "
+              f"{', '.join(f'{x:.0f}' for x in loader_ms)} ms for a batch "
+              f"of {t.batch_size} x {TRAIN_FRAMES} frames, the step "
+              f"{step['seconds'] * 1e3:.1f} ms (host: the card machine's "
+              f"CPU)  [{card}]")
+        spk = speaker_batch(corpus_lib.DiskCorpus(
+            ann, m, n_frames=TRAIN_FRAMES, text_len=TRAIN_TEXT))
+        eparams = with_denoiser_gates(params)
+        torch.cuda.synchronize()
+        reset_counts()
+        reps, ms = eval_calls(cfg, eparams, held, spk,
+                              eval_noise(cfg, t.batch_size, 0),
+                              device="cuda")
+        counts = kernel_counts(torch.device("cuda"))
+        check_no_plain_on_card("the evaluations")
+        if not np.isfinite(list(_numbers(reps))).all():
+            raise AssertionError(f"an evaluation is not finite: {reps}")
+        res["eval"] = {"counts": counts, "n_calls": 1}
+        print(f"  evaluations (bf16, batch {t.batch_size} x {TRAIN_FRAMES} "
+              f"frames, margin over {len(spk['wav'])} speakers, "
+              f"{m.diffusion.n_steps} sampler steps): "
+              f"{ {k: round(v, 1) for k, v in ms.items()} } ms; launches "
+              f"{ {k: n for k, n in counts.items() if n} }  [{card}]")
+        print(f"  reports: {json.dumps(reps)}")
+        cfg32 = dataclasses.replace(cfg, runtime=RuntimeConfig(
+            compute_dtype="float32"))
+        two = {k: v[:2] for k, v in held.items()}
+        spk2 = {k: v[:2] for k, v in spk.items()}
+        noise2 = eval_noise(cfg, 2, PARITY_SEED)
+        t0 = time.perf_counter()
+        ref, _ = eval_calls(cfg32, eparams, two, spk2, noise2, device="cpu",
+                            n_steps=STAGE3_PARITY_STEPS)
+        t_cpu = time.perf_counter() - t0
+        reset_counts()
+        got, _ = eval_calls(cfg32, eparams, two, spk2, noise2, device="cuda",
+                            n_steps=STAGE3_PARITY_STEPS)
+        check_no_plain_on_card("fp32 evaluations")
+        worst = compare_eval(got, ref)
+        print(f"  fp32 evaluations, card vs CPU plain path at batch 2 "
+              f"({STAGE3_PARITY_STEPS} sampler steps): counts and rates "
+              f"equal, largest float gap {worst:.2e} (tol {EVAL_ATOL:.0e}); "
+              f"CPU run {t_cpu:.1f} s  [{card}]")
+
+        toml = Path(tmp) / "mas.toml"
+        toml.write_text("[train]\nuse_mas_durations = true\n")
+        work = Path(tmp) / "work"
+        reset_counts()
+        t0 = time.perf_counter()
+        out = cli_stdout(["train", "--stage", "1", "--corpus", una,
+                          "--steps", "2", "--config", str(toml),
+                          "--workdir", str(work)])
+        check_no_plain_on_card("train --corpus")
+        tree = load_params(str(work / "stage1_final"))
+        if set(tree) != {"g", "d"} or set(tree["g"]) != set(G_PARTS) or \
+                not all(torch.isfinite(v).all() for part in tree["g"].values()
+                        for v in part.values()):
+            raise AssertionError(f"train --corpus wrote {sorted(tree)}")
+        n_weights = sum(v.numel() for p in tree["g"].values()
+                        for v in p.values())
+        c = Config()
+        print(f"  train --stage 1 --corpus (MAS, {c.train.batch_size} x "
+              f"{min(c.model.max_frames, 256)} frames, 48 phonemes) "
+              f"--steps 2: {time.perf_counter() - t0:.1f} s, stage1_final "
+              f"loads back ({n_weights} generator weights, finite); last "
+              f"line: "
+              f"{out.strip().splitlines()[-1]}  [{card}]")
     return res
 
 
@@ -3551,6 +3932,8 @@ def main() -> None:
     with phase("profile train_stage3"):
         phase_profile(stage3["fn"], stage3["inputs"], card,
                       "stage-3 train step, batch 16 x 1024")
+    with phase("corpus"):
+        corpus_res = phase_corpus(card)
     with phase("serve"):
         serve = phase_serve(card)
     with phase("profile serve"):
@@ -3568,6 +3951,10 @@ def main() -> None:
              "train_stage1": (train["counts"], train["n_calls"]),
              "train_stage2": (stage2["counts"], stage2["n_calls"]),
              "train_stage3": (stage3["counts"], stage3["n_calls"]),
+             "train_stage1_corpus_mas": (corpus_res["train"]["counts"],
+                                         corpus_res["train"]["n_calls"]),
+             "eval": (corpus_res["eval"]["counts"],
+                      corpus_res["eval"]["n_calls"]),
              **{name: (r["counts"], r["n_calls"]) for name, r in serve.items()},
              "verify": (verify["counts"], verify["n_calls"]),
              "acceptance_level2": (accept["counts"], accept["n_calls"]),

@@ -8,6 +8,7 @@ plus ``--device`` (default: the card; ``cpu`` for tests).  Examples:
     python -m styletts_zs_torch.cli synth --text "hi" --ref spk.wav \
         --wav-out out.wav
     python -m styletts_zs_torch.cli train --stage 1 --steps 100
+    python -m styletts_zs_torch.cli train --stage 1 --corpus corpus_dir
     python -m styletts_zs_torch.cli train --stage 3 --ckpt params.pt
     python -m styletts_zs_torch.cli verify      # card-vs-CPU-golden mel MAE
     python -m styletts_zs_torch.cli accept --level 2   # 0 = all five
@@ -18,11 +19,15 @@ the text and saves the first mel as ``.npy`` (``--wav-out``: the first
 waveform as 16-bit PCM); ``--ref`` is the speaker's wav, resampled and cut
 to 3 s, else 3 s of seeded noise; ``--fixed-style`` decodes with a zero
 style and no diffusion.  ``train`` runs one stage on the synthetic data
-(``SyntheticDataset``, clips of ``min(max_frames, 256)`` frames), saves a
-numbered checkpoint every ``checkpoint_every`` steps in stage 1 and writes
-the stage's output to ``--workdir``: ``stage1_final`` (``{"g": the
-generator's EMA, "d": the discriminator}``), ``stage2_final`` (the
-denoiser's EMA) or ``stage3_student``.  ``--ckpt`` reads a whole parameter
+(``SyntheticDataset``) or, with ``--corpus DIR``, on an on-disk corpus
+(``pipelines/corpus.py``: ``metadata.jsonl`` and ``wavs/``, batches from
+``make_corpus_loader`` with 48 phonemes; set ``use_mas_durations`` in the
+config's ``[train]`` table for a corpus without durations), clips of
+``min(max_frames, 256)`` frames, saves a numbered checkpoint every
+``checkpoint_every`` steps in stage 1 and writes the stage's output to
+``--workdir``: ``stage1_final`` (``{"g": the generator's EMA, "d": the
+discriminator}``), ``stage2_final`` (the denoiser's EMA) or
+``stage3_student``.  ``--ckpt`` reads a whole parameter
 tree, as ``save_params`` writes one (``scripts/convert_jax_params.py``
 writes one from a JAX bundle), in place of the seeded initialisation.
 """
@@ -122,15 +127,23 @@ def cmd_train(args) -> None:
         cfg = replace(cfg, train=replace(cfg.train, n_steps=args.steps))
     t = cfg.train
     params = _get_params(cfg, args.ckpt, with_discriminator=(args.stage == 1))
-    ds = SyntheticDataset(cfg.model, batch_size=t.batch_size, seed=t.seed,
-                          n_frames=min(cfg.model.max_frames, 256))
+    if args.corpus:
+        from styletts_zs_torch.pipelines.corpus import make_corpus_loader
+        loader = iter(make_corpus_loader(
+            args.corpus, cfg.model, batch_size=t.batch_size,
+            n_frames=min(cfg.model.max_frames, 256), seed=t.seed))
+        next_batch = lambda: next(loader)  # noqa: E731
+    else:
+        next_batch = SyntheticDataset(
+            cfg.model, batch_size=t.batch_size, seed=t.seed,
+            n_frames=min(cfg.model.max_frames, 256)).next_batch
     mgr = CheckpointManager(args.workdir, keep=t.keep_checkpoints)
 
     if args.stage == 1:
         tr = T.Stage1Trainer(cfg, params, device=device, seed=t.seed)
         state = tr.init_state(params)
         for step in range(t.n_steps):
-            batch = T.batch_to_device(ds.next_batch(), tr.device)
+            batch = T.batch_to_device(next_batch(), tr.device)
             state, metrics = tr.train_step(state, batch)
             if step % t.log_every == 0:
                 m = {k: round(float(v), 4) for k, v in metrics.items()}
@@ -143,7 +156,7 @@ def cmd_train(args) -> None:
         tr = T.Stage2Trainer(cfg, params, device=device, seed=t.seed)
         state = tr.init_state(params["diffusion"])
         for step in range(t.n_steps):
-            batch = T.batch_to_device(ds.next_batch(), tr.device)
+            batch = T.batch_to_device(next_batch(), tr.device)
             state, metrics = tr.train_step(state, batch)
             if step % t.log_every == 0:
                 print(f"step {step}: diff={float(metrics['diff']):.4f}")
@@ -154,7 +167,7 @@ def cmd_train(args) -> None:
         # distillation uses only distill_samples clips
         n_steps = min(t.n_steps, t.distill_samples // t.batch_size)
         for step in range(n_steps):
-            batch = T.batch_to_device(ds.next_batch(), tr.device)
+            batch = T.batch_to_device(next_batch(), tr.device)
             state, metrics = tr.train_step(state, batch)
             if step % t.log_every == 0:
                 print(f"step {step}: latent={float(metrics['latent']):.4f} "
@@ -205,12 +218,16 @@ def main(argv=None) -> None:
                     help="torch device (default: the card)")
     ps.set_defaults(fn=cmd_synth)
 
-    pt = sub.add_parser("train", help="train one stage on synthetic data")
+    pt = sub.add_parser("train", help="train one stage on synthetic data "
+                                      "or an on-disk corpus")
     pt.add_argument("--config", default=None)
     pt.add_argument("--ckpt", default=None,
                     help="a parameter tree written by save_params")
     pt.add_argument("--stage", type=int, choices=(1, 2, 3), required=True)
     pt.add_argument("--steps", type=int, default=None)
+    pt.add_argument("--corpus", default=None,
+                    help="an on-disk corpus directory (metadata.jsonl, "
+                         "wavs/) in place of the synthetic data")
     pt.add_argument("--workdir", default=os.path.join(tempfile.gettempdir(),
                                                       "styletts_zs_ckpt"))
     pt.add_argument("--device", default=None,

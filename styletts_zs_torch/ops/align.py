@@ -6,8 +6,11 @@ style codes are stretched over each utterance by a linear-interpolation
 matrix.  The training-time aligner's objective, ``forward_sum_loss``, is a
 log-space DP over frames, a Python loop where JAX runs ``lax.scan``: about
 five kernel launches a frame forward and twice that backward, so ~15 000 at
-1024 frames.  Monotonic alignment search (off by default,
-``use_mas_durations``) is not ported yet.
+1024 frames.  ``monotonic_alignment_search`` (the duration targets of a
+corpus without annotations, ``use_mas_durations``) is a Viterbi pass over
+the frames and a backtrace, two Python loops where JAX runs two
+``lax.scan``s, with the same adds and compares, so its durations equal
+JAX's; no value is read back to the host inside the loops.
 """
 from __future__ import annotations
 
@@ -71,3 +74,40 @@ def forward_sum_loss(log_probs: torch.Tensor, text_lengths: torch.Tensor,
         alpha = torch.where(frame_valid[t - 1], new, alpha)
     final = alpha.gather(1, (text_lengths.long() - 1)[:, None])[:, 0]
     return -(final / torch.clamp(frame_lengths.float(), min=1.0)).mean()
+
+
+def monotonic_alignment_search(energies: torch.Tensor,
+                               text_lengths: torch.Tensor,
+                               frame_lengths: torch.Tensor) -> torch.Tensor:
+    """Hard durations (B, T_text) int32, summing to ``frame_lengths``, of
+    the best monotonic path through the (B, T_frames, T_text) ``energies``
+    (higher = better): a forward Viterbi over the frames in fp32 (a bf16
+    lattice is promoted at its first add) that keeps whether each text
+    index advanced entering each frame (strictly better: ``move > stay``),
+    then a backtrace from each utterance's last phoneme.  Frames past an
+    utterance's length leave its scores and bits unchanged."""
+    B, T, N = energies.shape
+    dev = energies.device
+    neg = -1e30
+    alpha = torch.full((B, N), neg, dtype=torch.float32, device=dev)
+    alpha[:, 0] = energies[:, 0, 0]
+    frame_valid = (torch.arange(T, device=dev)[:, None]
+                   < frame_lengths[None, :])                 # (T, B)
+    moves = torch.empty(max(T - 1, 0), B, N, dtype=torch.bool, device=dev)
+    for t in range(1, T):
+        move = F.pad(alpha[:, :-1], (1, 0), value=neg)
+        took = move > alpha
+        new = torch.where(took, move, alpha) + energies[:, t]
+        valid = frame_valid[t][:, None]
+        alpha = torch.where(valid, new, alpha)
+        torch.logical_and(took, valid, out=moves[t - 1])
+    # the text index at each frame, from the last frame back
+    idx = torch.empty(T, B, dtype=torch.int64, device=dev)
+    i_cur = text_lengths.long() - 1
+    for t in range(T - 1, 0, -1):
+        idx[t] = i_cur
+        took = moves[t - 1].gather(1, i_cur[:, None])[:, 0]
+        i_cur = i_cur - (took & frame_valid[t]).long()
+    idx[0] = i_cur
+    durations = torch.zeros(B, N, dtype=torch.int32, device=dev)
+    return durations.scatter_add_(1, idx.T, frame_valid.T.to(torch.int32))

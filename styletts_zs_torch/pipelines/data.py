@@ -1,20 +1,31 @@
-"""Data pipeline: synthetic paired (wav, phonemes, durations, F0, energy).
+"""Data pipeline: synthetic paired (wav, phonemes, durations, F0, energy),
+and the sharded loader over a map-style source.
 
-A copy of ``SyntheticDataset`` and ``Batch`` from
-``styletts_zs_tpu/pipelines/data.py`` (numpy only; the grain loader is left
-out): the port imports nothing of the JAX package, so it keeps its own.
-The same seed gives the same batches, bit for bit
-(``tests/test_torch_train.py`` checks it).  Each "phoneme" contributes a
-voiced harmonic segment whose pitch/energy follow smooth random curves; the
-wav is synthesized additively, so (text, audio, alignment) are consistent.
+A copy of ``SyntheticDataset``, ``Batch`` and ``SyntheticDataSource`` from
+``styletts_zs_tpu/pipelines/data.py`` (numpy only): the port imports
+nothing of the JAX package, so it keeps its own.  The same seed gives the
+same batches, bit for bit (``tests/test_torch_train.py`` checks it).  Each
+"phoneme" contributes a voiced harmonic segment whose pitch/energy follow
+smooth random curves; the wav is synthesized additively, so (text, audio,
+alignment) are consistent.
+
+grain is not available on the card's machine, so ``make_grain_loader``
+becomes ``make_synthetic_loader``: a ``torch.utils.data.DataLoader`` over
+the map-style source with ``ShardedSampler`` (seeded, reshuffled each
+epoch, sharded with the remainder dropped, endless), batches collated by
+``preprocess.collate`` into numpy dicts as grain's ``Batch`` yields them.
+grain's permutation is not reproduced; the contract is.
 """
 from __future__ import annotations
 
+import multiprocessing
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from styletts_zs_torch.config import ModelConfig
+from styletts_zs_torch.pipelines.preprocess import collate
 
 
 @dataclass
@@ -155,3 +166,95 @@ class SyntheticDataset:
                      mel=np.zeros((B, Tf, a.n_mels), np.float32),
                      wav=wavs, f0=f0s, energy=ens, frame_lengths=flens,
                      ref_wav=refs)
+
+
+# ---------------------------------------------------------------------------
+# the sharded loader (grain's IndexSampler + DataLoader + Batch)
+# ---------------------------------------------------------------------------
+
+class SyntheticDataSource:
+    """Map-style source: index -> one deterministic utterance's example
+    dict (the batch keys, unbatched)."""
+
+    def __init__(self, cfg: ModelConfig, *, n_items: int = 100000,
+                 n_frames: int = 256, text_len: int = 48, seed: int = 0):
+        self.cfg = cfg
+        self.n_items = n_items
+        self.n_frames = n_frames
+        self.text_len = text_len
+        self.seed = seed
+
+    def __len__(self) -> int:
+        return self.n_items
+
+    def __getitem__(self, idx):
+        ds = SyntheticDataset(self.cfg, batch_size=1,
+                              seed=self.seed * 1000003 + int(idx),
+                              n_frames=self.n_frames, text_len=self.text_len)
+        b = ds.next_batch()
+        return {
+            "phonemes": b.phonemes[0], "text_lengths": b.text_lengths[0],
+            "durations": b.durations[0], "wav": b.wav[0], "f0": b.f0[0],
+            "energy": b.energy[0], "frame_lengths": b.frame_lengths[0],
+            "ref_wav": b.ref_wav[0],
+        }
+
+
+class ShardedSampler(torch.utils.data.Sampler):
+    """Endless record indices of one shard: the records split into
+    ``shard_count`` contiguous shards of ``n_records // shard_count`` (the
+    remainder dropped), this shard's reshuffled each epoch by a
+    ``torch.Generator`` seeded with (``seed``, epoch), so every index of the
+    shard appears once an epoch and hosts stream disjoint data."""
+
+    def __init__(self, n_records: int, *, seed: int = 0,
+                 shard_index: int = 0, shard_count: int = 1):
+        if not 0 <= shard_index < shard_count:
+            raise ValueError(f"shard {shard_index} of {shard_count}")
+        self.per_shard = n_records // shard_count
+        if self.per_shard == 0:
+            raise ValueError(f"{n_records} records cannot fill "
+                             f"{shard_count} shards")
+        self.start = shard_index * self.per_shard
+        self.seed = seed
+
+    def epoch(self, i: int) -> list[int]:
+        """The indices of epoch ``i``, in order."""
+        g = torch.Generator().manual_seed(self.seed * 1000003 + i)
+        return (torch.randperm(self.per_shard, generator=g)
+                + self.start).tolist()
+
+    def __iter__(self):
+        i = 0
+        while True:
+            yield from self.epoch(i)
+            i += 1
+
+
+def make_loader(source, *, batch_size: int, seed: int = 0,
+                worker_count: int = 0, shard_index: int = 0,
+                shard_count: int = 1) -> torch.utils.data.DataLoader:
+    """An endless loader of collated numpy batch dicts over ``source``
+    (``ShardedSampler``; ``worker_count`` worker processes, spawned)."""
+    sampler = ShardedSampler(len(source), seed=seed, shard_index=shard_index,
+                             shard_count=shard_count)
+    return torch.utils.data.DataLoader(
+        source, batch_size=batch_size, sampler=sampler, drop_last=True,
+        collate_fn=collate, num_workers=worker_count,
+        multiprocessing_context=(multiprocessing.get_context("spawn")
+                                 if worker_count else None))
+
+
+def make_synthetic_loader(cfg: ModelConfig, *, batch_size: int,
+                          n_frames: int = 256, text_len: int = 48,
+                          seed: int = 0, worker_count: int = 0,
+                          shard_index: int = 0, shard_count: int = 1,
+                          n_items: int = 100000):
+    """The counterpart of JAX's ``make_grain_loader``: per-host sharded
+    batches of ``SyntheticDataSource`` (a host passes its (rank, world
+    size) as the shard)."""
+    source = SyntheticDataSource(cfg, n_items=n_items, n_frames=n_frames,
+                                 text_len=text_len, seed=seed)
+    return make_loader(source, batch_size=batch_size, seed=seed,
+                       worker_count=worker_count, shard_index=shard_index,
+                       shard_count=shard_count)

@@ -22,7 +22,12 @@ count before its increment, so the first update has lr 0 and changes
 nothing, weight decay included; the clip scales by max/||g|| only when
 ||g|| >= max (no epsilon).  Dropout draws from the trainer's
 ``torch.Generator`` (the JAX PRNG cannot be reproduced; parity runs set the
-rates to 0).  Monotonic alignment search is not ported yet.
+rates to 0).  With ``use_mas_durations`` (a corpus without duration
+annotations), monotonic alignment search over the aligner's energies gives
+the durations that ``reconstruct`` expands by and the duration loss's
+target, without a gradient; the discriminator step recomputes them with the
+updated generator weights, as JAX's ``d_loss`` re-runs the whole generator
+forward.
 
 Stages 2 and 3 (``Stage2Trainer``, ``Stage3Trainer``) train the style
 denoiser in fp32 (the diffusion net's dtype) on fp32 masters, against the
@@ -192,9 +197,6 @@ class Stage1Trainer:
     the dropout generator."""
 
     def __init__(self, cfg: Config, params, *, device=None, seed: int = 0):
-        if cfg.train.use_mas_durations:
-            raise NotImplementedError("monotonic alignment search is not "
-                                      "ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
         mods = build_train_modules(cfg, params, G_PARTS + ("discriminator",),
@@ -236,6 +238,10 @@ class Stage1Trainer:
     # -- forwards -----------------------------------------------------------
 
     def _forward_g(self, batch, rng, *, with_align: bool = True):
+        """The generator forward: (out, wav_hat, mel_gt, text_mask,
+        frame_mask, energies, durations).  ``with_align`` False (the
+        discriminator step) skips the aligner unless MAS needs its
+        energies: JAX computes them there too, but only MAS reads them."""
         m, t = self.cfg.model, self.cfg.train
         ac = self.acoustic
         n_frames = batch["f0"].shape[1]
@@ -243,25 +249,30 @@ class Stage1Trainer:
         text_mask = length_mask(batch["text_lengths"],
                                 batch["phonemes"].shape[1])
         frame_mask = length_mask(batch["frame_lengths"], n_frames)
+        durations = batch["durations"]
         energies = None
-        if with_align and t.w_align > 0:
+        if t.use_mas_durations or (with_align and t.w_align > 0):
             # the text encoder alone: JAX's aligner discards the prosody
             # encoding, which XLA then never computes
             text_enc = ac.text_encoder(batch["phonemes"], mask=text_mask)
             energies = ac.align_energies(text_enc, mel_gt, text_mask=text_mask)
+            if t.use_mas_durations:
+                durations = align_ops.monotonic_alignment_search(
+                    energies.detach(), batch["text_lengths"],
+                    batch["frame_lengths"])
         out, _, _ = ac.reconstruct(
-            batch["phonemes"], mel_gt, batch["durations"],
+            batch["phonemes"], mel_gt, durations,
             text_mask=text_mask, frame_mask=frame_mask,
             f0_target=batch["f0"], energy_target=batch["energy"], rng=rng)
         wav_hat = self.vocoder(out.mel, mask=frame_mask)
-        return out, wav_hat, mel_gt, text_mask, frame_mask, energies
+        return out, wav_hat, mel_gt, text_mask, frame_mask, energies, durations
 
     def g_loss(self, batch, rng=None):
         """(loss, aux) of the generator with the working weights (``load``
         them first); ``rng`` the dropout generator (None: no dropout)."""
         m, t = self.cfg.model, self.cfg.train
         ac, disc = self.acoustic, self.discriminator
-        out, wav_hat, mel_gt, text_mask, frame_mask, energies = \
+        out, wav_hat, mel_gt, text_mask, frame_mask, energies, durations = \
             self._forward_g(batch, rng)
         L = min(wav_hat.shape[1], batch["wav"].shape[1])
         wav_gt, wav_fake = batch["wav"][:, :L], wav_hat[:, :L]
@@ -275,7 +286,7 @@ class Stage1Trainer:
         loss_mel = _masked_l1_feat(out.mel, mel_gt, frame_mask)
         loss_adv = generator_adv_loss(fake_lg)
         loss_fm = feature_matching_loss(real_ft, fake_ft)
-        dur_target = torch.log1p(batch["durations"].float())
+        dur_target = torch.log1p(durations.float())
         loss_dur = _masked_l1(out.log_dur, dur_target, text_mask)
         loss_f0 = _masked_l1(out.f0, batch["f0"], frame_mask)
         loss_en = _masked_l1(out.energy, batch["energy"], frame_mask)
@@ -284,7 +295,7 @@ class Stage1Trainer:
                 + t.w_energy * loss_en)
         aux = {"mel": loss_mel, "adv_g": loss_adv, "fm": loss_fm,
                "dur": loss_dur, "f0": loss_f0, "energy": loss_en}
-        if energies is not None:
+        if energies is not None and t.w_align > 0:
             loss_align = align_ops.forward_sum_loss(
                 F.log_softmax(energies, dim=-1), batch["text_lengths"],
                 batch["frame_lengths"])
@@ -331,9 +342,10 @@ class Stage1Trainer:
 
     def d_loss(self, batch, rng=None):
         """(loss, aux) of the discriminator: the generator's forward with
-        the working generator weights under ``no_grad``, then the critics."""
+        the working generator weights under ``no_grad`` (MAS's durations
+        recomputed with them), then the critics."""
         with torch.no_grad():
-            out, wav_hat, mel_gt, _, _, _ = self._forward_g(
+            out, wav_hat, mel_gt, _, _, _, _ = self._forward_g(
                 batch, rng, with_align=False)
         L = min(wav_hat.shape[1], batch["wav"].shape[1])
         fake_lg, _ = self.discriminator(wav_hat[:, :L], out.mel)

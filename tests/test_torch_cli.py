@@ -12,21 +12,24 @@ JSON with JAX's keys.  The numpy audio functions of
 to JAX's bit for bit, and within 2e-6 of JAX's native resampler
 (``tests/test_audio_native.py``'s tolerance).
 """
+import dataclasses
 import json
 import wave
 from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
-from _torch_parity import (jax_synth_report, jax_tiny, load_chip_smoke,
-                           random_tree, run_module, torch_tiny)
+from _torch_parity import (_toml_lines, jax_synth_report, jax_tiny,
+                           load_chip_smoke, random_tree, run_cli, run_module,
+                           torch_tiny)
 from styletts_zs_tpu.pipelines import corpus as j_corpus
 from styletts_zs_tpu.pipelines import preprocess as j_pre
 from styletts_zs_tpu.pipelines.checkpoint import save_params as j_save_params
 from styletts_zs_tpu.utils import audio as j_audio
 from styletts_zs_torch.pipelines import corpus, preprocess
-from styletts_zs_torch.pipelines.checkpoint import save_params
+from styletts_zs_torch.pipelines.checkpoint import load_params, save_params
 from styletts_zs_torch.pipelines.convert import convert_params
 from styletts_zs_torch.utils import audio
 
@@ -153,3 +156,41 @@ def test_ref_window_matches_jax(n):
     got = preprocess.ref_window(wav, 16000)
     assert got.shape == (48000,)
     np.testing.assert_array_equal(got, j_pre.ref_window(wav, 16000))
+
+
+@pytest.mark.parametrize("stage,mas,out", [(1, True, "stage1_final"),
+                                           (2, False, "stage2_final")])
+def test_train_corpus_writes_a_checkpoint_that_loads(tmp_path, stage, mas,
+                                                     out):
+    """``train --corpus`` at the tiny size on the CPU: stage 1 from a
+    corpus without durations with ``use_mas_durations`` set in the
+    config's ``[train]`` table, stage 2 from the annotated one; the
+    stage's output loads back, every tensor finite."""
+    root = tmp_path / "corpus"
+    corpus.export_synthetic_corpus(str(root), torch_tiny().model, n_utts=6,
+                                   n_speakers=2, n_frames=128, text_len=40,
+                                   seed=1)
+    if mas:
+        meta = root / "metadata.jsonl"
+        recs = [json.loads(x) for x in meta.read_text().splitlines() if x]
+        meta.write_text("".join(json.dumps({k: v for k, v in r.items()
+                                            if k != "durations"}) + "\n"
+                                for r in recs))
+    cfg = torch_tiny()
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, use_mas_durations=mas))
+    toml = tmp_path / "tiny_mas.toml"
+    toml.write_text("\n".join(_toml_lines(dataclasses.asdict(cfg))) + "\n")
+    r = run_cli(["--stage", str(stage), "--corpus", str(root), "--steps",
+                 "2", "--device", "cpu"], toml, tmp_path / "work")
+    assert "training done" in _ok(r)
+    tree = load_params(str(tmp_path / "work" / out))
+    if stage == 1:
+        assert set(tree) == {"g", "d"}
+        assert set(tree["g"]) == {"acoustic", "vocoder"}
+
+    def leaves(x):
+        return ([v for y in x.values() for v in leaves(y)]
+                if isinstance(x, dict) else [x])
+    assert len(leaves(tree)) > 10
+    assert all(torch.isfinite(v).all() for v in leaves(tree))

@@ -442,10 +442,25 @@ def test_chip_smoke_train_rehearsal_on_cpu(world):
 
 
 def test_trainer_refuses_mas_durations(world):
-    """Monotonic alignment search is not ported: asking for it raises,
-    whatever ``w_align`` is (JAX runs it in either case)."""
+    """Monotonic alignment search is ported (``tests/test_torch_mas.py``
+    holds it against JAX), so the trainer no longer refuses it: asked for
+    it with ``w_align`` 0, as JAX it still runs the aligner and MAS, takes
+    the durations from MAS (summing to the frame lengths) and adds no
+    forward-sum term."""
     cfg = world["pcfg"]
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(
         cfg.train, use_mas_durations=True, w_align=0.0))
-    with pytest.raises(NotImplementedError, match="alignment search"):
-        PT.Stage1Trainer(cfg, world["params"], device="cpu")
+    tr = PT.Stage1Trainer(cfg, world["params"], device="cpu")
+    tr.load(*(lambda s: (s.g_params, s.d_params))(
+        tr.init_state(world["params"])))
+    with torch.no_grad():
+        out = tr._forward_g(world["pb"], None)
+        _, aux = tr.g_loss(world["pb"])
+    energies, durations = out[5], out[6]
+    assert energies is not None and "align" not in aux
+    np.testing.assert_array_equal(
+        n(durations), n(p_align.monotonic_alignment_search(
+            energies, world["pb"]["text_lengths"],
+            world["pb"]["frame_lengths"])))
+    np.testing.assert_array_equal(n(durations).sum(1),
+                                  world["nb"].frame_lengths)
