@@ -98,6 +98,17 @@ Phases, one line each with its seconds:
                   within 1e-3, counts and rates equal); ``train --stage 1
                   --corpus --steps 2`` with MAS on, its ``stage1_final``
                   loaded back;
+     pipeline   — ``run_pipeline`` (``pipelines/pipeline.py``, the three
+                  stages with their gates, the bundle and a synthesis) at
+                  full width (``Config()``, bf16 on fp32 masters, batch 16 x
+                  256 frames), 2 steps a stage and a gate every step: each
+                  step's ms and launches (as the stage's step predicts at
+                  256 frames; rows 1, 3-5 and 11 at 0, no launch outside
+                  the probed calls), each gate's and synthesis's ms, the
+                  report's keys and finite numbers, peak memory; a second
+                  call with ``--skip-stage1/2`` (stage 3 given the saved
+                  trees bit for bit); level 5 from the bundle the card
+                  trained;
  16. serve      — acceptance level 5 at full size (``Server``: batch 32,
                   buckets of 256, 512 and 1024 frames, 1-step, mel only,
                   bf16): 256 requests (a warm-up call, the median of 5),
@@ -107,6 +118,17 @@ Phases, one line each with its seconds:
                   the plan against the batches served; then fp32 on the
                   card against fp32 on the CPU at 8 requests;
  17. profile    — the same breakdown for one 256-request call;
+     mesh       — data parallelism (``parallel/mesh.py``): at world size 1
+                  over NCCL, ``Server(mesh=make_mesh())`` at level 5 (256
+                  requests, bf16) per uid equal to the serve phase's
+                  ``Server``, and the stage-1 step with ``mesh=`` at the
+                  fp32 parity batch equal to the step without (then one
+                  bf16 step at 16 x 1024 for its launches); then two ranks
+                  of this script (``--mesh-rank``) on the one card over
+                  gloo: fp32 serving of 32 requests at batch 32 (16 a rank)
+                  within 1e-4 of one process, the stage-1 step with one
+                  utterance a rank against the one-process step; the
+                  collectives' calls and ms per call;
  18. verify     — the numerics gate, acceptance level 1
                   (``run_verification(max_frames=256, device="cuda")``);
  19. acceptance — acceptance level 2 at full size (batch 8 x 1024 frames,
@@ -161,6 +183,7 @@ import dataclasses
 import importlib.util
 import io
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -192,12 +215,16 @@ from styletts_zs_torch.ops import conv as conv_ops  # noqa: E402
 from styletts_zs_torch.ops import stft as stft_ops  # noqa: E402
 from styletts_zs_torch.ops.attention import length_mask  # noqa: E402
 from styletts_zs_torch.parallel import bucketing  # noqa: E402
+from styletts_zs_torch.parallel import collectives  # noqa: E402
+from styletts_zs_torch.parallel import mesh as mesh_lib  # noqa: E402
 from styletts_zs_torch.pipelines import acceptance  # noqa: E402
 from styletts_zs_torch.pipelines.acceptance import (  # noqa: E402
     base_config, run_acceptance, synth_inputs)
 from styletts_zs_torch.native import frontend as native_frontend  # noqa: E402
 from styletts_zs_torch.pipelines import corpus as corpus_lib  # noqa: E402
 from styletts_zs_torch.pipelines import eval as eval_lib  # noqa: E402
+from styletts_zs_torch.pipelines import pipeline as pipeline_lib  # noqa: E402
+from styletts_zs_torch.pipelines import train as train_lib  # noqa: E402
 from styletts_zs_torch.pipelines.checkpoint import load_params  # noqa: E402
 from styletts_zs_torch.pipelines.corpus import (  # noqa: E402
     read_wav, write_wav)
@@ -2232,14 +2259,17 @@ def _no_dropout(cfg: Config) -> Config:
         predictor=dataclasses.replace(m.predictor, dropout=0.0)))
 
 
-def train_parity_run(cfg: Config, params, nb, device) -> dict:
+def train_parity_run(cfg: Config, params, nb, device, mesh=None) -> dict:
     """One fp32 generator and discriminator loss with their gradients on
     ``device``, the FSQ codes of the ground-truth mel, the predicted
     durations and (with ``use_mas_durations``) MAS's, at the initial
-    weights."""
-    tr = Stage1Trainer(cfg, params, device=device)
+    weights.  With ``mesh`` each data rank takes its rows of ``nb``: the
+    losses and gradients are the global batch's, the codes and durations
+    gathered over the ranks."""
+    tr = Stage1Trainer(cfg, params, device=device, mesh=mesh)
     state = tr.init_state(params)
-    batch = batch_to_device(nb, device)
+    batch = batch_to_device(nb, device, sharding=None if mesh is None
+                            else mesh_lib.batch_sharding(mesh))
     tr.load(state.g_params, state.d_params)
     _, g_aux, g_grads = tr.g_grads(batch)
     _, d_aux, d_grads = tr.d_grads(batch)
@@ -2256,6 +2286,9 @@ def train_parity_run(cfg: Config, params, nb, device) -> dict:
         _, pros = ac.encode_text(batch["phonemes"], text_mask)
         durations = ac.duration_predictor.to_frames(ac.duration_predictor(
             pros, styled.mean(dim=1), mask=text_mask), text_mask)
+        if mesh is not None:
+            indices = collectives.gather_rows(mesh, indices)
+            durations = collectives.gather_rows(mesh, durations)
     cpu = lambda tree: {k: v.detach().cpu() for k, v in tree.items()}  # noqa: E731
     return {"losses": {k: v.item() for k, v in {**g_aux, **d_aux}.items()},
             "grads": {**{f"{p}.{k}": v for p, sd in g_grads.items()
@@ -3368,6 +3401,483 @@ def phase_acceptance(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the pipeline: the three stages with their gates, the bundle, level 5 on it
+# ---------------------------------------------------------------------------
+
+PIPELINE_STEPS = 2
+PIPELINE_FRAMES = 256          # train_pipeline.py's full-config clips
+REPORT_KEYS = ("config", "held_out_batch", "steps", "stage1_curve", "stage1",
+               "stage1_gt_margin", "fsq_usage", "stage1_wall_s",
+               "stage2_curve", "stage2", "stage2_wall_s", "stage3_curve",
+               "stage3", "stage3_wall_s", "final")
+# the kernels the decoder takes only above one chunk of frames: at 256
+# frames it runs through full attention (row 2), forward and backward
+PIPELINE_ZERO = ("local_attention", "local_attention_fwd_lse",
+                 "local_attention_bwd_dq", "local_attention_bwd_dkv", "istft")
+
+
+class CallProbe:
+    """Wraps functions the pipeline calls: each call timed to its end (the
+    card synchronised) with the kernel launches and twin backwards it made;
+    launches between the wrapped calls are kept apart (``outside``)."""
+
+    def __init__(self):
+        self.events: list[dict] = []
+        self.outside: dict[str, int] = {}
+        self._last = ({}, {})
+        self._undo: list = []
+
+    def _delta(self):
+        counts = kernel_counts(torch.device("cuda"))
+        twins = dict(plain.twin_vjp_calls)
+        lc, lt = self._last
+        self._last = (counts, twins)
+        return ({k: v - lc.get(k, 0) for k, v in counts.items()},
+                {k: v - lt.get(k, 0) for k, v in twins.items()})
+
+    def wrap(self, owner, attr: str, kind: str) -> None:
+        fn = getattr(owner, attr)
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            for name, n in self._delta()[0].items():
+                self.outside[name] = self.outside.get(name, 0) + n
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts, twins = self._delta()
+            self.events.append({"kind": kind, "name": attr, "ms": ms,
+                                "counts": counts, "twins": twins})
+            return out
+        setattr(owner, attr, timed)
+        self._undo.append((owner, attr, fn))
+
+    def restore(self) -> None:
+        for owner, attr, fn in reversed(self._undo):
+            setattr(owner, attr, fn)
+        self._undo.clear()
+
+
+PIPELINE_GATES = ("evaluate_acoustic", "speaker_similarity_margin",
+                  "fsq_usage_stats", "evaluate_diffusion",
+                  "evaluate_distill_gap", "speaker_similarity")
+
+
+def probe_pipeline() -> CallProbe:
+    probe = CallProbe()
+    for n, cls in enumerate((Stage1Trainer, Stage2Trainer, Stage3Trainer)):
+        probe.wrap(cls, "train_step", f"stage{n + 1} step")
+    for name in PIPELINE_GATES:
+        probe.wrap(eval_lib, name, "gate")
+    probe.wrap(pipeline_lib.Synthesizer, "synthesize", "synthesis")
+    return probe
+
+
+def check_pipeline_steps(cfg: Config, probe: CallProbe) -> None:
+    """Every train step launched what its stage's step launches at
+    ``PIPELINE_FRAMES`` frames (the stage phases' predictions), with the
+    twin backwards they predict."""
+    n_teacher = cfg.model.diffusion.n_steps
+    expect = {"stage1 step": train_expected_counts(cfg, PIPELINE_FRAMES),
+              "stage2 step": stage2_expected_counts(cfg),
+              "stage3 step": stage3_expected_counts(cfg, PIPELINE_FRAMES,
+                                                    n_teacher)}
+    for e in probe.events:
+        if e["kind"] not in expect:
+            continue
+        want = expect[e["kind"]]
+        got = {k: v for k, v in e["counts"].items() if v}
+        if got != {k: v for k, v in want["kernels"].items() if v} or \
+                {k: v for k, v in e["twins"].items() if v} != \
+                {k: v for k, v in want["twins"].items() if v}:
+            raise AssertionError(f"pipeline {e['kind']}: launches {got}, "
+                                 f"twins {e['twins']}; expected {want}")
+
+
+def report_pipeline(probe: CallProbe, card: str) -> None:
+    """Each stage's step times, each gate's and synthesis's time, and the
+    launches by kind of call."""
+    by_kind: dict[str, list] = {}
+    for e in probe.events:
+        by_kind.setdefault(e["kind"], []).append(e)
+    for kind, evs in by_kind.items():
+        launches: dict[str, int] = {}
+        for e in evs:
+            for k, v in e["counts"].items():
+                launches[k] = launches.get(k, 0) + v
+        if kind == "gate" or kind == "synthesis":
+            times = ", ".join(f"{e['name']} {e['ms']:.1f}" for e in evs)
+        else:
+            times = ", ".join(f"{e['ms']:.1f}" for e in evs)
+        print(f"  pipeline {kind} ms: {times}; launches "
+              f"{ {k: v for k, v in launches.items() if v} }  [{card}]")
+
+
+def phase_pipeline(card: str) -> dict:
+    """``run_pipeline`` on the card at full width (``Config()``, 147.6 M
+    parameters, bf16 compute on fp32 masters; batch 16 x 256 frames, the
+    script's full-config clips): ``PIPELINE_STEPS`` steps a stage, a gate
+    every step; the report's keys, finite numbers, each step's launches as
+    its stage predicts, no launch outside the probed calls, rows 1, 3-5
+    and 11 at 0 (the decoder's 256 frames take row 2).  Then a second call
+    that skips stages 1-2 (their saved trees, stage 3 starting from them,
+    bit for bit) and runs one stage-3 step; then level 5 from the bundle
+    the card trained."""
+    work = Path(tempfile.mkdtemp(prefix="pipeline_"))
+    probe = probe_pipeline()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with redirect_stdout(io.StringIO()) as out:
+            report = pipeline_lib.run_pipeline(
+                steps1=PIPELINE_STEPS, steps2=PIPELINE_STEPS,
+                steps3=PIPELINE_STEPS, gate_every=1, eval_every=1,
+                workdir=str(work), device="cuda")
+    finally:
+        probe.restore()
+    wall = time.perf_counter() - t0
+    counts = kernel_counts(torch.device("cuda"))
+    check_no_plain_on_card("pipeline")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    lines = out.getvalue().splitlines()
+    for ln in lines:
+        if ln.startswith('{"quality_gate"') or ln.startswith('{"stage"') \
+                or "done in" in ln:
+            print(f"    {ln[:400]}")
+    cfg = Config()
+    if tuple(report) != REPORT_KEYS or \
+            not np.isfinite(list(_numbers(report))).all():
+        raise AssertionError(f"pipeline report: keys {list(report)} or a "
+                             f"number not finite")
+    if report["steps"] != [PIPELINE_STEPS] * 3 or \
+            len(report["stage1_curve"]) != PIPELINE_STEPS:
+        raise AssertionError(f"pipeline report: steps {report['steps']}, "
+                             f"stage-1 curve {report['stage1_curve']}")
+    check_pipeline_steps(cfg, probe)
+    if any(probe.outside.values()) or any(counts[k] for k in PIPELINE_ZERO):
+        raise AssertionError(f"pipeline: launches outside the probed calls "
+                             f"{probe.outside}, or rows 1/3-5/11 launched "
+                             f"{counts}")
+    summed = {}
+    for e in probe.events:
+        for k, v in e["counts"].items():
+            summed[k] = summed.get(k, 0) + v
+    if summed != counts:
+        raise AssertionError(f"pipeline: {summed} over the calls, {counts} "
+                             f"in all")
+    print(f"  run_pipeline at full width ({cfg.train.batch_size} x "
+          f"{PIPELINE_FRAMES} frames, bf16, {PIPELINE_STEPS} steps a stage, "
+          f"a gate every step): {wall:.1f} s, stage walls "
+          f"{[report[f'stage{i}_wall_s'] for i in (1, 2, 3)]} s, peak memory "
+          f"{peak_gb:.2f} GB; launches "
+          f"{ {k: v for k, v in counts.items() if v} } (rows 1, 3-5, 11 at "
+          f"0 as predicted); no plain version on the card  [{card}]")
+    report_pipeline(probe, card)
+    print(f"    final: {report['final']}")
+
+    # the second call: stages 1 and 2 from their saved trees
+    seen = {}
+    orig_init, orig_state = Stage3Trainer.__init__, Stage3Trainer.init_state
+
+    def init(self, c, params, **k):
+        seen["given"] = {p: {n: v.detach().cpu().clone()
+                             for n, v in params[p].items()}
+                         for p in ("acoustic", "diffusion")}
+        orig_init(self, c, params, **k)
+
+    def init_state(self, teacher):
+        st = orig_state(self, teacher)
+        seen["student"] = {n: v.cpu() for n, v in st.params.items()}
+        return st
+    Stage3Trainer.__init__, Stage3Trainer.init_state = init, init_state
+    t0 = time.perf_counter()
+    try:
+        with redirect_stdout(io.StringIO()):
+            rep2 = pipeline_lib.run_pipeline(
+                steps1=PIPELINE_STEPS, steps2=PIPELINE_STEPS, steps3=1,
+                workdir=str(work), skip_stage1=str(work / "stage1"),
+                skip_stage2=str(work / "stage2"), device="cuda")
+    finally:
+        Stage3Trainer.__init__, Stage3Trainer.init_state = \
+            orig_init, orig_state
+    wall2 = time.perf_counter() - t0
+    saved1 = load_params(str(work / "stage1"))["acoustic"]
+    saved2 = load_params(str(work / "stage2"))
+    same = (all(torch.equal(seen["given"]["acoustic"][k], v)
+                for k, v in saved1.items())
+            and all(torch.equal(seen["given"]["diffusion"][k], v)
+                    for k, v in saved2.items())
+            and all(torch.equal(seen["student"][k], v)
+                    for k, v in saved2.items()))
+    print(f"  run_pipeline --skip-stage1/2 --steps3 1: {wall2:.1f} s; stage "
+          f"3 given the saved stage-1 acoustic and stage-2 teacher bit for "
+          f"bit, the student starting as the teacher: {same}; stage-1 "
+          f"curve extended to {len(rep2['stage1_curve'])} gates")
+    if not same or len(rep2["stage1_curve"]) != PIPELINE_STEPS + 1:
+        raise AssertionError("pipeline --skip-stage1/2: the trees stage 3 "
+                             "got differ from the saved ones")
+    t0 = time.perf_counter()
+    rep5 = run_acceptance(5, bundle=str(work / "final"), device="cuda")
+    check_no_plain_on_card("level 5 from the pipeline's bundle")
+    check_accept_report(5, rep5)
+    print(f"  run_acceptance(5, bundle=<the card's bundle>): "
+          f"{time.perf_counter() - t0:.1f} s, {rep5['completed']} of "
+          f"{rep5['n_requests']} requests, plan_batches "
+          f"{rep5['plan_batches']}, requeued {rep5['requeued']}  [{card}]")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"counts": counts, "n_calls": 1}
+
+
+# ---------------------------------------------------------------------------
+# the mesh: data-parallel serving and the stage-1 step, at world size 1 over
+# NCCL, then two processes on the one card over gloo
+# ---------------------------------------------------------------------------
+
+MESH_SERVE_TOL = 1e-4          # fp32 mel, one process vs two ranks
+MESH_TIMEOUT = 600             # seconds for the two-process group
+
+
+def _time_collective(fn, n: int = 5) -> float:
+    """Median ms of ``n`` calls, each to its end on the card."""
+    fn()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def collective_times(mesh, grads: dict, table, mel) -> dict:
+    """ms per call of the collectives the paths run, at their payloads:
+    ``gather_style_codes`` of a style table's rows, ``gather_rows`` of a
+    batch's mel rows, ``pmean_grads`` of a stage-1 gradient tree."""
+    n = mesh_lib.batch_sharding(mesh).count
+    take = mesh_lib.batch_sharding(mesh).take
+    pad = -table.shape[0] % n
+    table = torch.cat([table, table.new_zeros((pad, *table.shape[1:]))])
+    before = dict(collectives.calls)
+    res = {"gather_style_codes": _time_collective(
+               lambda: collectives.gather_style_codes(mesh, take(table))),
+           "gather_rows (mel)": _time_collective(
+               lambda: collectives.gather_rows(mesh, take(mel))),
+           "pmean_grads": _time_collective(
+               lambda: collectives.pmean_grads(grads, mesh), n=3)}
+    collectives.calls.clear()
+    collectives.calls.update(before)
+    return res
+
+
+def _mesh_serve(params, mesh, n_requests: int, dtype: str):
+    cfg = serve_config(dtype=dtype)
+    reqs = serve_requests(cfg, n_requests)
+    return Server(cfg, params, device="cuda", mesh=mesh), reqs
+
+
+def serve_params() -> dict:
+    params = init_params(serve_config(), seed=0, device="cpu")
+    params["acoustic"]["duration_predictor.out.bias"].fill_(DURATION_BIAS)
+    return params
+
+
+def mesh_worker(rank: int, port: int, out: Path) -> None:
+    """One of two ranks on the one card over gloo: fp32 serving of 32
+    requests at batch 32 (16 a rank), then the stage-1 step at the fp32
+    parity batch (one utterance a rank), the collectives timed; rank 0
+    writes the results to ``out``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh_lib.multihost_init(f"tcp://localhost:{port}", 2, rank,
+                            backend="gloo")
+    mesh = mesh_lib.make_mesh()
+    params = serve_params()
+    server, reqs = _mesh_serve(params, mesh, 32, "float32")
+    t0 = time.perf_counter()
+    res = server.serve_batch(reqs)
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t0
+    cfg = train_config()
+    cfg32 = dataclasses.replace(_no_dropout(cfg), runtime=RuntimeConfig(
+        compute_dtype="float32"))
+    tparams = init_params(cfg, seed=0, device="cpu", with_discriminator=True)
+    tparams["acoustic"]["duration_predictor.out.bias"].fill_(DURATION_BIAS)
+    nb = train_batch(cfg, 2, PARITY_SEED)
+    t0 = time.perf_counter()
+    got = train_parity_run(cfg32, tparams, nb, "cuda", mesh=mesh)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    grads = {k: v.cuda() for k, v in got["grads"].items()}
+    mel = torch.zeros(32, 1024, cfg.model.audio.n_mels, device="cuda")
+    times = collective_times(mesh, grads, torch.from_numpy(
+        server.last_style_table), mel)
+    if rank == 0:
+        torch.save({"serve": {r.uid: (r.frames, r.mel) for r in res},
+                    "order": [r.uid for r in res],
+                    "requeued": len(server.requeued), "train": got,
+                    "ms": {"serve_batch": t_serve * 1e3,
+                           "stage-1 losses and gradients": t_train * 1e3},
+                    "collectives": times, "calls": dict(collectives.calls)},
+                   out)
+    torch.distributed.destroy_process_group()
+
+
+def run_mesh_workers(card: str) -> dict:
+    """``chip_smoke.py --mesh-rank r`` twice on this card, each rank's
+    output kept under ``chiprun_out/``; both killed past
+    ``MESH_TIMEOUT``."""
+    out_dir = REPO / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    result = Path(tempfile.mkdtemp(prefix="mesh_")) / "rank0.pt"
+    port = mesh_lib.free_port()
+    procs, logs = [], []
+    for r in range(2):
+        log = open(out_dir / f"mesh_rank{r}.log", "w")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, str(REPO / "chip_smoke.py"), "--mesh-rank",
+             str(r), "--mesh-port", str(port), "--mesh-out", str(result)],
+            cwd=REPO, stdout=log, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + MESH_TIMEOUT
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"the two mesh ranks did not finish in "
+                             f"{MESH_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    if any(p.returncode for p in procs):
+        tail = (out_dir / "mesh_rank0.log").read_text()[-3000:]
+        raise AssertionError(f"a mesh rank failed (chiprun_out/mesh_rank*"
+                             f".log): {tail}")
+    got = torch.load(result, weights_only=False)
+    shutil.rmtree(result.parent, ignore_errors=True)
+    return got
+
+
+def phase_mesh(card: str, serve_res: dict) -> dict:
+    """(1) World size 1 over NCCL: ``Server(mesh=make_mesh())`` at level 5
+    (256 requests, bf16) per uid equal to the serve phase's ``Server``;
+    the stage-1 step with ``mesh=`` at the fp32 parity batch equal to the
+    step without; each path's launches.  (2) Two processes on this card
+    over gloo: fp32 serving of 32 requests (16 a rank) against one
+    process, the stage-1 step with one utterance a rank against the
+    one-process step.  The collectives' counts and ms per call."""
+    mesh = mesh_lib.make_mesh()        # a group of this process, over NCCL
+    print(f"  mesh {mesh_lib.mesh_shape(mesh)} over "
+          f"{torch.distributed.get_backend()}  [{card}]")
+    server, reqs = serve_res["server"], serve_res["reqs"]
+    ref = {r.uid: r for r in server.serve_batch(reqs)}
+    params = serve_params()
+    mserver = Server(server.cfg, params, device="cuda", mesh=mesh)
+    mserver.serve_batch(reqs)                          # warm-up
+    collectives.calls.clear()
+    r = drive_serve(mserver, reqs, n_calls=1, label="serve 256 on the mesh "
+                    "(world size 1, NCCL)", card=card)
+    calls = dict(collectives.calls)
+    diff = max(float(np.abs(x.mel - ref[x.uid].mel).max())
+               for x in r["results"])
+    same = all(x.frames == ref[x.uid].frames for x in r["results"])
+    print(f"    per uid against the Server without a mesh: frames equal "
+          f"{same}, mel max_abs_err {diff:.2e}; collectives per call "
+          f"{calls}")
+    if not same or diff != 0.0:
+        raise AssertionError(f"serve on the mesh: frames equal {same}, mel "
+                             f"{diff}")
+    serve_mesh = {"counts": r["counts"], "n_calls": 1}
+
+    cfg = train_config()
+    cfg32 = dataclasses.replace(_no_dropout(cfg), runtime=RuntimeConfig(
+        compute_dtype="float32"))
+    tparams = init_params(cfg, seed=0, device="cpu", with_discriminator=True)
+    tparams["acoustic"]["duration_predictor.out.bias"].fill_(DURATION_BIAS)
+    nb = train_batch(cfg, 2, PARITY_SEED)
+    t0 = time.perf_counter()
+    one = train_parity_run(cfg32, tparams, nb, "cuda")
+    t_one = time.perf_counter() - t0
+    reset_counts()
+    dp = train_parity_run(cfg32, tparams, nb, "cuda", mesh=mesh)
+    check_no_plain_on_card("fp32 stage-1 step on the mesh")
+    if not (torch.equal(dp["indices"], one["indices"])
+            and torch.equal(dp["durations"], one["durations"])):
+        raise AssertionError("stage-1 step on the mesh: codes or durations "
+                             "differ")
+    gate_losses_and_grads(
+        f"fp32 stage-1 step on the mesh (world size 1, NCCL) vs without, "
+        f"batch 2 x {TRAIN_FRAMES}: codes and durations equal;", dp, one,
+        t_one, card)
+    # the path's launches: one data-parallel step at the stage-1 phase's
+    # batch 16 x 1024, bf16, dropout on
+    trainer = Stage1Trainer(cfg, tparams, device="cuda", mesh=mesh)
+    batch = batch_to_device(train_batch(cfg, cfg.train.batch_size, 0),
+                            "cuda", sharding=mesh_lib.batch_sharding(mesh))
+    state, _ = trainer.train_step(trainer.init_state(tparams), batch)
+    torch.cuda.synchronize()
+    collectives.calls.clear()
+    rt = drive_train(cfg, trainer, state, batch, device="cuda", n_steps=1,
+                     label="stage-1 step on the mesh")
+    print(f"  stage-1 step on the mesh (world size 1, NCCL, batch "
+          f"{cfg.train.batch_size} x {TRAIN_FRAMES}, bf16): "
+          f"{rt['seconds'] * 1e3:.1f} ms, launches as the stage-1 step's; "
+          f"collectives per step {dict(collectives.calls)}  [{card}]")
+    train_dp = {"counts": rt["counts"], "n_calls": 1}
+    grads = {k: v.cuda() for k, v in dp["grads"].items()}
+    times = collective_times(mesh, grads, torch.from_numpy(
+        mserver.last_style_table), torch.zeros(
+            32, 1024, cfg.model.audio.n_mels, device="cuda"))
+    print(f"  collectives at world size 1 (NCCL), ms per call: "
+          f"{ {k: round(v, 4) for k, v in times.items()} }  [{card}]")
+    del trainer, state, batch, grads, mserver, rt
+    torch.distributed.destroy_process_group()
+
+    # two processes on the one card over gloo
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    got = run_mesh_workers(card)
+    t_workers = time.perf_counter() - t0
+    cfg_s = serve_config(dtype="float32")
+    res32 = Server(cfg_s, params, device="cuda").serve_batch(
+        serve_requests(cfg_s, 32))
+    ref32, order = {x.uid: x for x in res32}, [x.uid for x in res32]
+    frames_eq = all(f == ref32[u].frames for u, (f, _) in got["serve"].items())
+    err = max(float(np.abs(m - ref32[u].mel).max())
+              for u, (f, m) in got["serve"].items()
+              if f == ref32[u].frames)
+    print(f"  two ranks on this card over gloo ({t_workers:.1f} s with "
+          f"start-up): fp32 serve of 32 requests at batch 32 (16 a rank) "
+          f"against one process: order equal {got['order'] == order}, "
+          f"frames equal {frames_eq}, mel max_abs_err {err:.2e} (tol "
+          f"{MESH_SERVE_TOL:.0e}), requeued {got['requeued']}; ms "
+          f"{ {k: round(v, 1) for k, v in got['ms'].items()} }; "
+          f"collectives ms per call "
+          f"{ {k: round(v, 3) for k, v in got['collectives'].items()} }, "
+          f"calls {got['calls']}  [{card}]")
+    if got["order"] != order or not frames_eq or not err <= MESH_SERVE_TOL \
+            or got["requeued"]:
+        raise AssertionError("serve on two ranks differs from one process")
+    dp2 = got["train"]
+    if not (torch.equal(dp2["indices"], one["indices"])
+            and torch.equal(dp2["durations"], one["durations"])):
+        raise AssertionError("stage-1 step on two ranks: codes or durations "
+                             "differ")
+    gate_losses_and_grads(
+        f"fp32 stage-1 step on two ranks (gloo, one utterance a rank) vs one "
+        f"process, batch 2 x {TRAIN_FRAMES}: codes and durations equal;",
+        dp2, one, t_one, card)
+    return {"serve_mesh": serve_mesh, "train_stage1_dp": train_dp}
+
+
+# ---------------------------------------------------------------------------
 # --against: every row's kernels against a parent commit's
 # ---------------------------------------------------------------------------
 
@@ -3884,7 +4394,15 @@ def main() -> None:
                     help="only run the 1-step, multi-step, long-form and "
                          "serving phases of the tree unpacked at DIR and of "
                          "this one, in turns")
+    ap.add_argument("--mesh-rank", type=int, default=None,
+                    help="run as one of the mesh phase's two ranks (the "
+                         "mesh phase starts them)")
+    ap.add_argument("--mesh-port", type=int, default=None)
+    ap.add_argument("--mesh-out", default=None)
     args = ap.parse_args()
+    if args.mesh_rank is not None:
+        mesh_worker(args.mesh_rank, args.mesh_port, Path(args.mesh_out))
+        return
     with phase("device"):
         card = phase_device()
     with phase("build"):
@@ -3934,12 +4452,17 @@ def main() -> None:
                       "stage-3 train step, batch 16 x 1024")
     with phase("corpus"):
         corpus_res = phase_corpus(card)
+    with phase("pipeline"):
+        pipe = phase_pipeline(card)
     with phase("serve"):
         serve = phase_serve(card)
     with phase("profile serve"):
         server, reqs = serve.pop("server"), serve.pop("reqs")
         phase_profile(lambda: server.serve_batch(reqs), (), card,
                       "serve 256 requests (mel)")
+    with phase("mesh"):
+        mesh_res = phase_mesh(card, {"server": server, "reqs": reqs})
+        del server
     with phase("verify"):
         verify = phase_verify(card)
     with phase("acceptance"):
@@ -3955,6 +4478,9 @@ def main() -> None:
                                          corpus_res["train"]["n_calls"]),
              "eval": (corpus_res["eval"]["counts"],
                       corpus_res["eval"]["n_calls"]),
+             "pipeline": (pipe["counts"], pipe["n_calls"]),
+             **{name: (r["counts"], r["n_calls"])
+                for name, r in mesh_res.items()},
              **{name: (r["counts"], r["n_calls"]) for name, r in serve.items()},
              "verify": (verify["counts"], verify["n_calls"]),
              "acceptance_level2": (accept["counts"], accept["n_calls"]),

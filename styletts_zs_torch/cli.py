@@ -12,6 +12,8 @@ plus ``--device`` (default: the card; ``cpu`` for tests).  Examples:
     python -m styletts_zs_torch.cli train --stage 3 --ckpt params.pt
     python -m styletts_zs_torch.cli verify      # card-vs-CPU-golden mel MAE
     python -m styletts_zs_torch.cli accept --level 2   # 0 = all five
+    torchrun --nproc-per-node 2 -m styletts_zs_torch.cli accept --level 5 \
+        --mesh                      # data-parallel serving over 2 ranks
     python -m styletts_zs_torch.cli bench       # one JSON line
 
 ``synth`` runs ``cfg.serve``'s program on ``serve.batch_size`` copies of
@@ -196,7 +198,7 @@ def cmd_accept(args) -> None:
     else:
         report = run_acceptance(args.level, full_size=args.full or None,
                                 n_requests=args.requests, bundle=args.bundle,
-                                device=args.device)
+                                device=args.device, use_mesh=args.mesh)
     print(json.dumps(report, indent=2))
 
 
@@ -248,6 +250,9 @@ def main(argv=None) -> None:
                     help="full-size model (default: full on the card)")
     pa.add_argument("--requests", type=int, default=None,
                     help="level 5: request count (contract scale 4096)")
+    pa.add_argument("--mesh", action="store_true",
+                    help="level 5: data-parallel serving over every rank "
+                         "(torchrun's environment, else this process)")
     pa.add_argument("--bundle", default=None,
                     help="level 5: a trained {acoustic, vocoder, diffusion} "
                          "tree written by save_params")

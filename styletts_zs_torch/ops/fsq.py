@@ -79,14 +79,17 @@ def soft_digit_probs(z: torch.Tensor, levels: tuple[int, ...],
 
 
 def entropy_losses(z: torch.Tensor, levels: tuple[int, ...],
-                   tau: float = 1.0):
+                   tau: float = 1.0, *, batch_mean=None):
     """(sample_entropy, codebook_entropy), per-dimension means in nats;
-    the stage-1 loss minimises their difference."""
+    the stage-1 loss minimises their difference.  ``batch_mean`` takes the
+    (N, d, Lmax) probabilities to their mean over the batch's rows (by
+    default these N; a data-parallel step averages over every rank's)."""
     p, level_mask = soft_digit_probs(z, levels, tau)
     flat = p.float().reshape(-1, *p.shape[-2:])           # (N, d, Lmax)
     eps = 1e-9
     sample_ent = -(flat * torch.log(flat + eps)).sum(-1).mean()
-    marginal = flat.mean(dim=0)                           # (d, Lmax)
+    marginal = (flat.mean(dim=0) if batch_mean is None
+                else batch_mean(flat))                    # (d, Lmax)
     code_ent = -torch.where(level_mask, marginal * torch.log(marginal + eps),
                             torch.zeros((), device=z.device)).sum(-1)
     return sample_ent, code_ent.mean()

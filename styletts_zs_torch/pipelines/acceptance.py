@@ -30,6 +30,7 @@ import torch
 from styletts_zs_torch.config import (Config, ModelConfig, RuntimeConfig,
                                       ServeConfig, replace, tiny_test_config)
 from styletts_zs_torch.parallel import bucketing
+from styletts_zs_torch.parallel import mesh as mesh_lib
 from styletts_zs_torch.pipelines.checkpoint import load_params
 from styletts_zs_torch.pipelines.factory import (PARTS, init_params,
                                                  resolve_device)
@@ -122,9 +123,12 @@ def _synth_report(cfg: Config, *, batch: int, one_step: bool,
 
 
 def _serve_report(base: Config, *, full: bool, n_requests: Optional[int],
-                  bundle: Optional[str], device: torch.device) -> dict:
+                  bundle: Optional[str], device: torch.device,
+                  use_mesh: bool = False) -> dict:
     n_req = n_requests or (256 if full else 8)
-    serve = ServeConfig(batch_size=32 if full else 2, one_step=True,
+    # a mesh splits each batch over its data ranks: the batch must divide
+    serve = ServeConfig(batch_size=32 if full else (16 if use_mesh else 2),
+                        one_step=True,
                         with_vocoder=False,
                         frame_buckets=(256, 512, 1024) if full else (64, 128))
     cfg = replace(base, serve=serve)
@@ -134,7 +138,8 @@ def _serve_report(base: Config, *, full: bool, n_requests: Optional[int],
         # frames (and the throughput) are real
         params = {**params, **load_params(
             bundle, like={k: params[k] for k in PARTS})}
-    server = Server(cfg, params, device=device)
+    mesh = mesh_lib.make_mesh(devices=device.type) if use_mesh else None
+    server = Server(cfg, params, device=device, mesh=mesh)
     rng = np.random.default_rng(0)
     sr = cfg.model.audio.sample_rate
     reqs = [Request(
@@ -162,7 +167,9 @@ def _serve_report(base: Config, *, full: bool, n_requests: Optional[int],
                       if n}
     return {"config": "pod_serving", "n_requests": len(reqs),
             "completed": len(results), "requeued": len(server.requeued),
-            "mesh": None, "bundle": bundle,
+            "mesh": (str(mesh_lib.mesh_shape(mesh)) if mesh is not None
+                     else None),
+            "bundle": bundle,
             "plan_batches": dict(sorted(plan.batches_per_bucket.items())),
             "served_batches": dict(sorted(batches_served.items())),
             # requeued batches are absent from `got`, so the comparison
@@ -177,15 +184,18 @@ def _serve_report(base: Config, *, full: bool, n_requests: Optional[int],
 
 def run_acceptance(level: int, *, full_size: Optional[bool] = None,
                    n_requests: Optional[int] = None,
-                   bundle: Optional[str] = None, device=None) -> dict:
+                   bundle: Optional[str] = None, device=None,
+                   use_mesh: bool = False) -> dict:
     """Run acceptance config ``level`` (1-5) on ``device`` (the card by
     default); returns a JSON-able report.
 
     ``full_size`` defaults to True on the card and False on the CPU (the
-    tiny shapes).  ``n_requests`` and ``bundle`` apply to level 5 only: the
-    request count (the contract's scale is 4096) and a trained tree
-    ``{acoustic, vocoder, diffusion}`` written by
-    ``pipelines.checkpoint.save_params``.
+    tiny shapes).  ``n_requests``, ``bundle`` and ``use_mesh`` apply to
+    level 5 only: the request count (the contract's scale is 4096), a
+    trained tree ``{acoustic, vocoder, diffusion}`` written by
+    ``pipelines.checkpoint.save_params``, and data-parallel serving over
+    every rank (``parallel.mesh.make_mesh``: torchrun's process group, or
+    one of this process alone).
     """
     dev = resolve_device(device)
     full = dev.type == "cuda" if full_size is None else full_size
@@ -215,7 +225,7 @@ def run_acceptance(level: int, *, full_size: Optional[bool] = None,
             rep["config"] = "longform_60s"
         else:
             rep = _serve_report(base, full=full, n_requests=n_requests,
-                                bundle=bundle, device=dev)
+                                bundle=bundle, device=dev, use_mesh=use_mesh)
     else:
         raise ValueError(f"unknown acceptance level {level}")
     rep["device"] = device_label(dev)

@@ -1,23 +1,28 @@
 """Length-bucketed batch serving (acceptance level 5).
 
-Counterpart of ``styletts_zs_tpu/pipelines/serve.py``, on one process:
+Counterpart of ``styletts_zs_tpu/pipelines/serve.py``:
   1. collect requests (phonemes and ~3 s of reference audio) with their
      frame-length estimates;
   2. exchange the bucket histogram and the per-request style table
-     (``parallel.collectives``: identities on one process), so every
-     process derives the same plan and dispatch order;
+     between hosts (``parallel.collectives``: identities on one host) and,
+     with a mesh, re-gather the table over its data axis, so every rank
+     derives the same plan and dispatch order;
   3. order each bucket's requests round-robin over style clusters, so every
      batch mixes speakers;
   4. run the synthesis program of each bucket, batch by batch, padded to
-     ``serve.batch_size``;
+     ``serve.batch_size``; with a mesh each data rank runs its rows of the
+     batch and the outputs are gathered, so every rank returns the same
+     results;
   5. requeue a batch whose run raises a ``RuntimeError`` (out of device
      memory, say); a shape error (``ValueError``, ``TypeError``) or a kernel
      fault (``kernels.build.KernelError``) propagates.
 The models are built once, on ``device`` (the card by default): no module
 depends on the bucket's frame count, so one program per (bucket, batch,
 text length) shares them.  Every batch starts from the same initial noise,
-as JAX's starts from ``PRNGKey(0)``: a generator seeded 0 afresh, or the
-``noise`` tensor given to the server.
+as JAX's starts from ``PRNGKey(0)``: a (batch, K, d_style) draw of a
+generator seeded 0 afresh, or the ``noise`` tensor given to the server;
+each rank takes its rows of it.  Every rank is given the same requests, as
+JAX's one host with a mesh is.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ import torch
 from styletts_zs_torch.config import Config
 from styletts_zs_torch.ops import stft as stft_ops
 from styletts_zs_torch.parallel import bucketing, collectives
+from styletts_zs_torch.parallel import mesh as mesh_lib
 from styletts_zs_torch.pipelines.factory import build_models, resolve_device
 from styletts_zs_torch.pipelines.infer import _synthesis_program
 
@@ -52,16 +58,25 @@ class Result:
 
 
 class Server:
-    """Serves batches of requests on one device with ``cfg.serve``'s
-    settings.  ``noise`` (batch_size, n_codes, d_style), when given, is the
-    initial noise of every batch."""
+    """Serves batches of requests on ``device`` with ``cfg.serve``'s
+    settings, with ``mesh`` (``parallel.mesh.make_mesh``) data-parallel
+    over its data ranks (``serve.batch_size`` must split evenly).
+    ``noise`` (batch_size, n_codes, d_style), when given, is the initial
+    noise of every batch."""
 
     _STYLE_CHUNK = 64  # references per prompt-encoder call
 
     def __init__(self, cfg: Config, params, *, device=None,
-                 noise: torch.Tensor | None = None):
+                 noise: torch.Tensor | None = None, mesh=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.sharding = (mesh_lib.batch_sharding(mesh) if mesh is not None
+                         else mesh_lib.Replicated())
+        if mesh is not None and cfg.serve.batch_size % self.sharding.count:
+            raise ValueError(f"serve.batch_size {cfg.serve.batch_size} does "
+                             f"not split over {self.sharding.count} data "
+                             f"ranks")
         self.models = build_models(cfg, params, device=self.device)
         self.noise = None if noise is None else noise.to(self.device)
         self._programs: dict[tuple, object] = {}
@@ -74,9 +89,13 @@ class Server:
 
     def exchange_style_codes(self, requests: list[Request]) -> np.ndarray:
         """Per-request prompt-encoder summaries, (N, d), exchanged so every
-        process holds the same global table: fixed-shape chunks of 64
+        rank holds the same global table: fixed-shape chunks of 64
         references zero-padded to 3 s, then
-        ``collectives.process_concat_styles``."""
+        ``collectives.process_concat_styles`` between hosts and, with a
+        mesh, the table zero-padded to a multiple of the data ranks and
+        re-gathered through ``collectives.gather_style_codes`` (each rank
+        handing in its rows), so the batches are assembled from the
+        collective's output."""
         ref_len = 3 * self.cfg.model.audio.sample_rate
         C = self._STYLE_CHUNK
         chunks = []
@@ -92,7 +111,14 @@ class Server:
             chunks.append(summary[: len(group)].float().cpu().numpy())
         local = np.concatenate(chunks, axis=0) if chunks else \
             np.zeros((0, 1), np.float32)
-        return collectives.process_concat_styles(local)
+        table = collectives.process_concat_styles(local)
+        if self.mesh is not None and table.shape[0]:
+            pad = -table.shape[0] % self.sharding.count
+            padded = np.pad(table, [(0, pad)] + [(0, 0)] * (table.ndim - 1))
+            mine = torch.from_numpy(self.sharding.take(padded))
+            table = collectives.gather_style_codes(self.mesh, mine) \
+                .cpu().numpy()[: table.shape[0]]
+        return table
 
     def _program(self, n_frames: int, batch: int, text_len: int):
         key = (n_frames, batch, text_len)
@@ -151,20 +177,39 @@ class Server:
                     self.requeued.extend(group)
         return results
 
+    def _initial_noise(self, B: int) -> torch.Tensor:
+        """The batch's (B, K, d_style) initial noise: the server's, or a
+        draw of a generator seeded 0 (as ``StyleDiffusion`` draws from
+        one)."""
+        if self.noise is not None:
+            return self.noise
+        s = self.cfg.model.style
+        return torch.randn(B, s.n_codes, s.d_style, device=self.device,
+                           generator=torch.Generator(
+                               device=self.device).manual_seed(0))
+
     def _dispatch(self, bucket, phon, tlen, refs, group) -> list[Result]:
         B = phon.shape[0]
-        fn = self._program(bucket, B, phon.shape[1])
+        take = self.sharding.take
+        phon, tlen, refs = take(phon), take(tlen), take(refs)
+        b = phon.shape[0]
+        fn = self._program(bucket, b, phon.shape[1])
         ref_mel = self._ref_mel(refs)
-        ref_lengths = torch.full((B,), ref_mel.shape[1], dtype=torch.int32,
+        ref_lengths = torch.full((b,), ref_mel.shape[1], dtype=torch.int32,
                                  device=self.device)
-        noise = self.noise if self.noise is not None else \
-            torch.Generator(device=self.device).manual_seed(0)
         out, wav = fn(torch.from_numpy(phon).to(self.device),
                       torch.from_numpy(tlen).to(self.device), ref_mel,
-                      ref_lengths, noise)
+                      ref_lengths, take(self._initial_noise(B)))
+        mel, frames = out.mel, out.frame_lengths
+        if self.mesh is not None:
+            # every rank's rows, in rank order: the whole batch
+            mel = collectives.gather_rows(self.mesh, mel)
+            frames = collectives.gather_rows(self.mesh, frames)
+            wav = None if wav is None else \
+                collectives.gather_rows(self.mesh, wav)
         # one copy to the host per batch
-        mel_np = out.mel.cpu().float().numpy()
-        frames = out.frame_lengths.cpu().numpy()
+        mel_np = mel.cpu().float().numpy()
+        frames = frames.cpu().numpy()
         wav_np = None if wav is None else wav.cpu().float().numpy()
         hop = self.cfg.model.audio.hop_length
         return [Result(uid=r.uid, mel=mel_np[j, : frames[j]],

@@ -43,9 +43,18 @@ that the frozen acoustic model decodes from the quantised styles (the
 teacher's without grad, its frame mask used).  The draws (JAX's PRNG
 cannot be reproduced) are inputs of ``loss``; when not given they come
 from the trainer's ``torch.Generator``.
+
+Data parallelism (``mesh=``, JAX's batch sharded over the ``data`` axis):
+each rank holds its rows of the global batch, and its loss is the global
+loss in mean form (``_DataAxis``), so that ``pmean_grads`` of the ranks'
+gradients is the global batch's gradient; the clip then sees the reduced
+gradient and every rank applies the same update.  ``state_tree`` and
+``state_from_tree`` turn a train state into a tree ``save_params`` writes
+and back.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 
@@ -60,6 +69,8 @@ from styletts_zs_torch.ops import align as align_ops
 from styletts_zs_torch.ops import fsq as fsq_ops
 from styletts_zs_torch.ops import stft as stft_ops
 from styletts_zs_torch.ops.attention import length_mask
+from styletts_zs_torch.parallel import collectives
+from styletts_zs_torch.parallel import mesh as mesh_lib
 from styletts_zs_torch.pipelines.factory import (build_frozen_modules,
                                                  build_train_modules,
                                                  resolve_device)
@@ -69,10 +80,73 @@ BATCH_KEYS = ("phonemes", "text_lengths", "durations", "wav", "f0", "energy",
               "frame_lengths", "ref_wav")
 
 
-def batch_to_device(batch, device) -> dict[str, torch.Tensor]:
-    """A numpy ``Batch`` (or dict) -> a dict of tensors on ``device``."""
+def batch_to_device(batch, device, sharding=None) -> dict[str, torch.Tensor]:
+    """A numpy ``Batch`` (or dict) -> a dict of tensors on ``device``;
+    with ``sharding`` (``parallel.mesh.batch_sharding``), this rank's
+    rows."""
     src = batch if isinstance(batch, dict) else vars(batch)
-    return {k: torch.as_tensor(src[k]).to(device) for k in BATCH_KEYS}
+    take = sharding.take if sharding is not None else (lambda x: x)
+    return {k: torch.as_tensor(take(src[k])).to(device) for k in BATCH_KEYS}
+
+
+# ---------------------------------------------------------------------------
+# the global batch: one process, or the data ranks of a mesh
+# ---------------------------------------------------------------------------
+
+class _OneProcess:
+    """The batch a process holds is the global batch."""
+    n = 1
+
+    def total(self, x):
+        return x
+
+    def gather(self, x):
+        return x
+
+    def batch_mean(self, x):
+        return x.mean(dim=0)
+
+    def rows(self, x):
+        return x
+
+    def mean(self, tree):
+        return tree
+
+
+class _DataAxis:
+    """The data ranks of ``mesh`` hold the global batch between them, each
+    its rows.  A rank's loss is the global loss in mean form: the mean over
+    the ranks of their losses is the loss of the global batch, so the mean
+    of their gradients (``pmean_grads``) is its gradient.  Per-utterance
+    means over equal row counts average as they are; masked means divide
+    the rank's sum by the global mask count (``total``) times n; the
+    speaker InfoNCE's logits span the gathered embeddings and the codebook
+    entropy the gathered probabilities, both with their gradients."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.sharding = mesh_lib.batch_sharding(mesh)
+        self.n = self.sharding.count
+
+    def total(self, x):
+        return collectives.all_sum(self.mesh, x)
+
+    def gather(self, x):
+        return collectives.gather_rows(self.mesh, x, grad=True)
+
+    def batch_mean(self, x):
+        return collectives.all_sum(self.mesh, x.sum(dim=0), grad=True) \
+            / (x.shape[0] * self.n)
+
+    def rows(self, x):
+        return self.sharding.take(x)
+
+    def mean(self, tree):
+        return collectives.pmean_grads(tree, self.mesh)
+
+
+def _data_group(mesh):
+    return _OneProcess() if mesh is None else _DataAxis(mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -147,22 +221,24 @@ def make_optimizer(cfg: Config, lr: float | None = None) -> AdamW:
 # losses
 # ---------------------------------------------------------------------------
 
-def _masked_l1(a, b, mask):
+def _masked_l1(a, b, mask, dp=_OneProcess()):
     """JAX's ``_masked_l1``, its denominator as it is: the mask is widened
-    to a's rank first, so the channel factor never applies."""
+    to a's rank first, so the channel factor never applies.  ``dp``: the
+    global batch the denominator counts."""
     m = mask.float()
     while m.ndim < a.ndim:
         m = m[..., None]
     diff = torch.abs(a.float() - b.float()) * m
-    return diff.sum() / torch.clamp(
-        m.sum() * (a.shape[-1] if a.ndim > m.ndim else 1.0), min=1.0)
+    return diff.sum() * dp.n / torch.clamp(dp.total(
+        m.sum() * (a.shape[-1] if a.ndim > m.ndim else 1.0)), min=1.0)
 
 
-def _masked_l1_feat(a, b, mask):
+def _masked_l1_feat(a, b, mask, dp=_OneProcess()):
     """L1 over (B, T, C) with a (B, T) mask."""
     m = mask.float()[..., None]
     diff = torch.abs(a.float() - b.float()) * m
-    return diff.sum() / torch.clamp(m.sum() * a.shape[-1], min=1.0)
+    return diff.sum() * dp.n / torch.clamp(dp.total(m.sum() * a.shape[-1]),
+                                           min=1.0)
 
 
 def _l2normalize(e):
@@ -181,6 +257,10 @@ class TrainState:
     ema_params: dict[str, dict[str, torch.Tensor]]
 
 
+def _detached(aux: dict) -> dict:
+    return {k: v.detach() for k, v in aux.items()}
+
+
 def _flat(tree: dict[str, dict[str, torch.Tensor]]) -> list[torch.Tensor]:
     return [t for part in tree.values() for t in part.values()]
 
@@ -194,11 +274,20 @@ class Stage1Trainer:
     """The stage-1 acoustic GAN step.  ``params``: fp32 parameter dicts
     with ``"acoustic"``, ``"vocoder"`` and ``"discriminator"``; the modules
     run on ``device`` (the card unless ``device="cpu"``); ``seed`` seeds
-    the dropout generator."""
+    the dropout generator (plus the data rank under a mesh).  With
+    ``mesh`` (``parallel.mesh.make_mesh``) each rank is given its rows of
+    the global batch (``batch_to_device(..., sharding=)``) and a step
+    computes the loss of the global batch: the aux losses and gradients
+    that ``g_grads``/``d_grads`` return are the global batch's on every
+    rank, so every rank applies the same update."""
 
-    def __init__(self, cfg: Config, params, *, device=None, seed: int = 0):
+    def __init__(self, cfg: Config, params, *, device=None, seed: int = 0,
+                 mesh=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.dp = _data_group(mesh)
+        if mesh is not None:
+            seed += self.dp.sharding.index
         mods = build_train_modules(cfg, params, G_PARTS + ("discriminator",),
                                    device=self.device)
         self.acoustic, self.vocoder = mods["acoustic"], mods["vocoder"]
@@ -283,13 +372,14 @@ class Stage1Trainer:
                 real_lg, real_ft = disc(wav_gt, mel_gt)
         finally:
             disc.requires_grad_(True)
-        loss_mel = _masked_l1_feat(out.mel, mel_gt, frame_mask)
+        dp = self.dp
+        loss_mel = _masked_l1_feat(out.mel, mel_gt, frame_mask, dp)
         loss_adv = generator_adv_loss(fake_lg)
         loss_fm = feature_matching_loss(real_ft, fake_ft)
         dur_target = torch.log1p(durations.float())
-        loss_dur = _masked_l1(out.log_dur, dur_target, text_mask)
-        loss_f0 = _masked_l1(out.f0, batch["f0"], frame_mask)
-        loss_en = _masked_l1(out.energy, batch["energy"], frame_mask)
+        loss_dur = _masked_l1(out.log_dur, dur_target, text_mask, dp)
+        loss_f0 = _masked_l1(out.f0, batch["f0"], frame_mask, dp)
+        loss_en = _masked_l1(out.energy, batch["energy"], frame_mask, dp)
         loss = (t.w_mel * loss_mel + t.w_adv * loss_adv + t.w_fm * loss_fm
                 + t.w_dur * loss_dur + t.w_f0 * loss_f0
                 + t.w_energy * loss_en)
@@ -305,7 +395,9 @@ class Stage1Trainer:
             ref_mel = stft_ops.mel_spectrogram(batch["ref_wav"], m.audio)
             _, e_ref = ac.encode_prompt(ref_mel)
             _, e_utt = ac.encode_prompt(mel_gt, frame_mask)
-            za, zb = _l2normalize(e_utt), _l2normalize(e_ref)
+            # the logits span the global batch's embeddings
+            za = dp.gather(_l2normalize(e_utt))
+            zb = dp.gather(_l2normalize(e_ref))
             labels = torch.arange(za.shape[0], device=za.device)
 
             def nce(x, y):
@@ -320,7 +412,7 @@ class Stage1Trainer:
             zb_sg = zb.detach()
             if t.w_spk_rec > 0:
                 _, e_rec = ac.encode_prompt(out.mel, frame_mask)
-                loss_rec, _ = nce(_l2normalize(e_rec), zb_sg)
+                loss_rec, _ = nce(dp.gather(_l2normalize(e_rec)), zb_sg)
                 loss = loss + t.w_spk_rec * loss_rec
                 aux["spk_nce_rec"] = loss_rec
             if t.w_spk_voc > 0:
@@ -328,12 +420,13 @@ class Stage1Trainer:
                 Tv = min(mel_voc.shape[1], frame_mask.shape[1])
                 _, e_voc = ac.encode_prompt(mel_voc[:, :Tv],
                                             frame_mask[:, :Tv])
-                loss_voc, _ = nce(_l2normalize(e_voc), zb_sg)
+                loss_voc, _ = nce(dp.gather(_l2normalize(e_voc)), zb_sg)
                 loss = loss + t.w_spk_voc * loss_voc
                 aux["spk_nce_voc"] = loss_voc
         if t.w_fsq_entropy > 0:
             z = ac.quantizer.down(ac.style_extractor(mel_gt, mask=frame_mask))
-            ent_s, ent_c = fsq_ops.entropy_losses(z, m.style.fsq_levels)
+            ent_s, ent_c = fsq_ops.entropy_losses(z, m.style.fsq_levels,
+                                                  batch_mean=dp.batch_mean)
             loss = loss + t.w_fsq_entropy * (ent_s - ent_c)
             aux["fsq_sample_ent"] = ent_s
             aux["fsq_code_ent"] = ent_c
@@ -354,13 +447,16 @@ class Stage1Trainer:
         return loss, {"total_d": loss}
 
     def g_grads(self, batch, rng=None):
-        """(loss, aux, fp32 gradients keyed like the generator masters)."""
+        """(loss, aux, fp32 gradients keyed like the generator masters);
+        under a mesh the aux and gradients are the means over the data
+        ranks: the global batch's."""
         loss, aux = self.g_loss(batch, rng)
         params = self._g_working()
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p, dtype=torch.float32) if gr is None
                  else gr.float() for p, gr in zip(params, grads)]
         names = {p: self._names(p) for p in G_PARTS}
+        grads, aux = self.dp.mean((grads, _detached(aux)))
         return loss, aux, _unflat(names, grads)
 
     def d_grads(self, batch, rng=None):
@@ -368,7 +464,9 @@ class Stage1Trainer:
         params = list(self.discriminator.parameters())
         grads = torch.autograd.grad(loss, params)
         names = dict(self.discriminator.named_parameters())
-        return loss, aux, {k: gr.float() for k, gr in zip(names, grads)}
+        grads, aux = self.dp.mean(([gr.float() for gr in grads],
+                                   _detached(aux)))
+        return loss, aux, dict(zip(names, grads))
 
     def _names(self, part: str) -> dict[str, None]:
         return dict.fromkeys(k for k, _ in getattr(self, part)
@@ -414,13 +512,19 @@ class DiffusionTrainState:
 class _DiffusionTrainer:
     """What stages 2 and 3 share: the acoustic model frozen in its compute
     dtype, a working fp32 ``StyleDiffusion`` with gradients on, its
-    optimiser and the generator of the draws."""
+    optimiser and the generator of the draws.  With ``mesh`` each rank is
+    given its rows of the global batch and of any draw handed in; a draw
+    not handed in is drawn at the global batch's shape (the generator is
+    seeded alike on every rank) and cut to the rank's rows, so the step
+    equals the one-process step on the global batch."""
 
     frozen_parts: tuple[str, ...] = ("acoustic",)
 
-    def __init__(self, cfg: Config, params, *, device=None, seed: int = 0):
+    def __init__(self, cfg: Config, params, *, device=None, seed: int = 0,
+                 mesh=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.dp = _data_group(mesh)
         self.frozen = build_frozen_modules(cfg, params, self.frozen_parts,
                                            device=self.device)
         self.acoustic = self.frozen["acoustic"]
@@ -457,13 +561,29 @@ class _DiffusionTrainer:
 
     def grads(self, batch, **draws):
         """(loss, aux, fp32 gradients keyed like the denoiser masters) with
-        the working weights (``load`` them first)."""
+        the working weights (``load`` them first); under a mesh the scalar
+        aux and the gradients are the means over the data ranks (the global
+        batch's), per-utterance aux gathered over them."""
         loss, aux = self.loss(batch, **draws)
         named = list(self.diffusion.named_parameters())
         grads = torch.autograd.grad(loss, [p for _, p in named],
                                     allow_unused=True)
-        return loss, aux, {k: torch.zeros_like(p) if g is None else g.float()
-                           for (k, p), g in zip(named, grads)}
+        grads = {k: torch.zeros_like(p) if g is None else g.float()
+                 for (k, p), g in zip(named, grads)}
+        if self.dp.n == 1:
+            return loss, aux, grads
+        scalars = {k: v.detach() for k, v in aux.items() if v.ndim == 0}
+        grads, scalars = self.dp.mean((grads, scalars))
+        rows = {k: collectives.gather_rows(self.dp.mesh, v.detach())
+                for k, v in aux.items() if v.ndim > 0}
+        return loss, {**scalars, **rows}, grads
+
+    def _draw(self, shape, kind: str):
+        """A draw of this rank's rows of a global (n * shape[0], ...) draw
+        from the trainer's generator: ``rand`` or ``randn``."""
+        full = (shape[0] * self.dp.n, *shape[1:])
+        fn = torch.rand if kind == "rand" else torch.randn
+        return self.dp.rows(fn(full, generator=self.rng, device=self.device))
 
     def _update(self, state: DiffusionTrainState, grads):
         new, opt = self.tx.update(list(grads.values()), state.opt,
@@ -498,9 +618,15 @@ class Stage2Trainer(_DiffusionTrainer):
             styled, _, _ = self.acoustic.extract_style(mel_gt, frame_mask)
         text_mask, tokens, summary, (text_enc, _) = self._condition(
             batch, prosody=False)
+        B = styled.shape[0]
         if drop is None:
-            drop = torch.rand(styled.shape[0], generator=self.rng,
-                              device=self.device) < m.diffusion.cond_dropout
+            drop = self._draw((B,), "rand") < m.diffusion.cond_dropout
+        if self.dp.n > 1:
+            # the one-process step's order of draws: drop, n, noise
+            if n is None:
+                n = self._draw((B,), "randn")
+            if noise is None:
+                noise = self._draw(styled.shape, "randn")
         loss, _ = self.diffusion(styled, text_enc, tokens, summary,
                                  text_mask=text_mask, drop_prompt=drop, n=n,
                                  noise=noise, rng=self.rng)
@@ -534,8 +660,8 @@ class Stage3Trainer(_DiffusionTrainer):
     frozen_parts = ("acoustic", "diffusion")
 
     def __init__(self, cfg: Config, params, *, device=None, seed: int = 0,
-                 n_teacher_steps: int | None = None):
-        super().__init__(cfg, params, device=device, seed=seed)
+                 n_teacher_steps: int | None = None, mesh=None):
+        super().__init__(cfg, params, device=device, seed=seed, mesh=mesh)
         self.teacher = self.frozen["diffusion"]
         self.n_teacher_steps = n_teacher_steps or cfg.model.diffusion.n_steps
 
@@ -555,9 +681,8 @@ class Stage3Trainer(_DiffusionTrainer):
             batch, prosody=True)
         text_enc = encoded[0]
         if noise is None:
-            noise = torch.randn(text_enc.shape[0], m.style.n_codes,
-                                m.style.d_style, generator=self.rng,
-                                device=self.device)
+            noise = self._draw((text_enc.shape[0], m.style.n_codes,
+                                m.style.d_style), "randn")
         with torch.no_grad():
             s_teacher = self.teacher.sample(
                 noise, text_enc, tokens, summary, text_mask=text_mask,
@@ -575,7 +700,8 @@ class Stage3Trainer(_DiffusionTrainer):
         with torch.no_grad():
             out_t = decode(s_teacher)
         out_s = decode(s_student)
-        loss_perc = _masked_l1_feat(out_s.mel, out_t.mel, out_t.frame_mask)
+        loss_perc = _masked_l1_feat(out_s.mel, out_t.mel, out_t.frame_mask,
+                                    self.dp)
         loss = t.w_latent * loss_latent + t.w_perceptual * loss_perc
         return loss, {"latent": loss_latent, "perceptual": loss_perc,
                       "total_distill": loss,
@@ -590,3 +716,38 @@ class Stage3Trainer(_DiffusionTrainer):
         params, opt = self._update(state, grads)
         return (DiffusionTrainState(state.step + 1, params, opt),
                 {k: aux[k].detach() for k in STAGE3_METRICS})
+
+
+# ---------------------------------------------------------------------------
+# train states as trees of tensors (``checkpoint.save_params``)
+# ---------------------------------------------------------------------------
+
+def state_tree(state):
+    """A ``TrainState`` or ``DiffusionTrainState`` as a nested dict of
+    tensors: the step and the optimiser's count as 0-d int64 tensors, the
+    moments' lists keyed by position, an absent EMA left out."""
+    if isinstance(state, int):
+        return torch.tensor(state, dtype=torch.int64)
+    if isinstance(state, (list, tuple)):
+        return {str(i): t for i, t in enumerate(state)}
+    if dataclasses.is_dataclass(state):
+        return {f.name: state_tree(getattr(state, f.name))
+                for f in dataclasses.fields(state)
+                if getattr(state, f.name) is not None}
+    return state
+
+
+def state_from_tree(tree, like):
+    """The state ``state_tree`` made ``tree`` from, shaped as ``like`` (a
+    state of the same kind; ``checkpoint.load_params(path,
+    like=state_tree(like))`` reads the tree)."""
+    if isinstance(like, int):
+        return int(tree)
+    if isinstance(like, (list, tuple)):
+        return [tree[str(i)] for i in range(len(like))]
+    if dataclasses.is_dataclass(like):
+        return type(like)(**{
+            f.name: (state_from_tree(tree[f.name], getattr(like, f.name))
+                     if getattr(like, f.name) is not None else None)
+            for f in dataclasses.fields(like)})
+    return tree

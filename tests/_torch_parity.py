@@ -18,6 +18,9 @@ from styletts_zs_tpu.pipelines.factory import init_params as jax_init_params
 from styletts_zs_tpu.utils.config import tiny_test_config as jax_tiny
 from styletts_zs_torch.config import tiny_test_config as torch_tiny
 
+# seconds a group of ranks (``run_group``) may take before it is killed
+GROUP_TIMEOUT = 120
+
 
 def leaf_name(path) -> str:
     return "/".join(str(getattr(k, "key", k)) for k in path)
@@ -159,6 +162,56 @@ def run_module(module: str, args: list[str], *, timeout: int = 300):
                           timeout=timeout)
 
 
+def run_group(n: int, *, script: list[str], hosts: int,
+              timeout: int = GROUP_TIMEOUT, retried: bool = False
+              ) -> list[str]:
+    """``script`` (argv after the interpreter) as ``n`` ranks of one
+    process group on this machine (torchrun's environment, no card
+    visible), the ranks spread over ``hosts`` hosts (``GROUP_RANK``) in
+    blocks; fails the test, killing every rank, when the group takes more
+    than ``timeout`` seconds or a rank fails.  Returns each rank's
+    stdout."""
+    import time
+
+    import pytest
+    from styletts_zs_torch.parallel.mesh import free_port
+    repo = Path(__file__).resolve().parent.parent
+    port = free_port()
+    procs = []
+    for r in range(n):
+        env = dict(os.environ, PYTHONPATH=str(repo), CUDA_VISIBLE_DEVICES="",
+                   OMP_NUM_THREADS="1", RANK=str(r), WORLD_SIZE=str(n),
+                   LOCAL_RANK=str(r % (n // hosts)),
+                   GROUP_RANK=str(r // (n // hosts)),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, *script], cwd=repo, env=env, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+    outs, errs = [], []
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            o, e = p.communicate(
+                timeout=max(deadline - time.monotonic(), 0.1))
+            outs.append(o)
+            errs.append(e)
+        failed = [e for p, e in zip(procs, errs) if p.returncode]
+        if failed and not retried and any(
+                "address already in use" in e.lower() for e in failed):
+            # another process took the free port first: once more
+            return run_group(n, script=script, hosts=hosts, timeout=timeout,
+                             retried=True)
+        assert not failed, f"rank failed:\n{failed[0][-3000:]}"
+    except subprocess.TimeoutExpired:
+        pytest.fail(f"a group of {n} ranks did not finish in {timeout} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
 __all__ = ["jax_tiny", "torch_tiny", "random_tree", "to_jax", "t", "n",
            "leaf_name", "write_tiny_config", "run_cli", "jax_synth_report",
-           "load_chip_smoke", "run_module"]
+           "load_chip_smoke", "run_module", "run_group"]

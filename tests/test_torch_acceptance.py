@@ -75,6 +75,26 @@ def test_level_5_matches_jax():
     CS.check_accept_report(5, rep)
 
 
+def test_level_5_with_a_mesh_matches_jax():
+    """``run_acceptance(5, use_mesh=True)`` in one process: a mesh of this
+    one rank (a gloo group of one), the batch of 16 a mesh serves, the
+    mesh's shape in the report; the plan and batches as JAX's with its
+    mesh."""
+    import torch.distributed as dist
+    ref = j_acc.run_acceptance(5, full_size=False, use_mesh=True)
+    try:
+        rep = acc.run_acceptance(5, device="cpu", use_mesh=True)
+    finally:
+        dist.destroy_process_group()
+    assert rep["mesh"] == str({"data": 1, "model": 1})
+    assert ref["mesh"] == str({"data": 8, "model": 1})
+    for k in SERVE_KEYS:
+        assert rep[k] == ref[k], (k, rep[k], ref[k])
+    assert rep["plan_matches_served"] is True
+    assert acc.run_acceptance(5, device="cpu")["mesh"] is None
+    CS.check_accept_report(5, rep)
+
+
 def test_level_5_serves_a_bundle(tmp_path, monkeypatch):
     tree = convert_params(random_tree(jax_tiny(), seed=7), torch_tiny())
     path = tmp_path / "bundle.pt"

@@ -22,8 +22,9 @@ import pytest
 import torch
 
 from _torch_parity import (_toml_lines, jax_synth_report, jax_tiny,
-                           load_chip_smoke, random_tree, run_cli, run_module,
-                           torch_tiny)
+                           load_chip_smoke, random_tree, run_cli, run_group,
+                           run_module, torch_tiny)
+from styletts_zs_tpu.pipelines import acceptance as j_acc
 from styletts_zs_tpu.pipelines import corpus as j_corpus
 from styletts_zs_tpu.pipelines import preprocess as j_pre
 from styletts_zs_tpu.pipelines.checkpoint import save_params as j_save_params
@@ -100,6 +101,24 @@ def test_accept_level_2_prints_jax_keys(monkeypatch):
     assert set(rep) == set(ref) | {"device"}
     assert rep["config"] == "zs_batch8" and rep["device"] == "cpu"
     load_chip_smoke().check_accept_report(2, rep)
+
+
+def test_accept_level_5_mesh_under_two_ranks():
+    """``accept --level 5 --mesh --device cpu`` as two ranks of a gloo
+    group: each prints the level-5 report with the mesh's shape and every
+    request served, on JAX's plan for a mesh's batch of 16."""
+    outs = run_group(2, hosts=1, script=[
+        "-m", "styletts_zs_torch.cli", "accept", "--level", "5", "--mesh",
+        "--device", "cpu"])
+    reps = [json.loads(o[o.index("{"):]) for o in outs]
+    ref = j_acc.run_acceptance(5, full_size=False, use_mesh=True)
+    for rep in reps:
+        assert rep["mesh"] == str({"data": 2, "model": 1})
+        assert rep["completed"] == rep["n_requests"] == 8
+        assert rep["requeued"] == 0 and rep["plan_matches_served"]
+        for k in ("plan_batches", "served_batches"):   # JSON's keys
+            assert rep[k] == {str(b): n for b, n in ref[k].items()}, k
+        assert rep["style_table_shape"] == ref["style_table_shape"]
 
 
 def test_bench_prints_one_line():

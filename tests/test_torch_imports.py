@@ -37,7 +37,8 @@ BLOCKED_RUN = textwrap.dedent('''
     from styletts_zs_torch import cli
     from styletts_zs_torch import bench
     from styletts_zs_torch.pipelines import (acceptance, factory, infer,
-                                             serve, train, verify)
+                                             pipeline, serve, train, verify)
+    from styletts_zs_torch.parallel import mesh
     cfg = tiny_test_config()
     params = factory.init_params(cfg, device="cpu", with_discriminator=True)
     calls = {
@@ -58,6 +59,9 @@ BLOCKED_RUN = textwrap.dedent('''
         "run_acceptance": lambda: acceptance.run_acceptance(2),
         "Server": lambda: serve.Server(cfg, params),
         "run_verification": lambda: verify.run_verification(),
+        "run_pipeline": lambda: pipeline.run_pipeline(),
+        "pipeline main": lambda: pipeline.main(["--steps1", "1"]),
+        "make_mesh": lambda: mesh.make_mesh(),
     }
     for name, call in calls.items():
         try:

@@ -263,13 +263,16 @@ def test_collectives_are_identities_on_one_process(monkeypatch):
                                   table)
     np.testing.assert_array_equal(collectives.process_sum_histogram(hist),
                                   hist)
-    # across processes they are not ported yet: no silently local table
+    # ranks of one host stay identities (the exchange is between hosts:
+    # tests/test_torch_parallel.py runs it over two)
     monkeypatch.setattr(collectives.dist, "is_initialized", lambda: True)
     monkeypatch.setattr(collectives.dist, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError):
-        collectives.process_concat_styles(table)
-    with pytest.raises(NotImplementedError):
-        collectives.process_sum_histogram(hist)
+    monkeypatch.setattr(collectives, "_node_groups",
+                        lambda: ([None], None, 0, [0]))
+    np.testing.assert_array_equal(collectives.process_concat_styles(table),
+                                  table)
+    np.testing.assert_array_equal(collectives.process_sum_histogram(hist),
+                                  hist)
 
 
 # --- chip_smoke.py's serve phase, rehearsed on the CPU ---------------------------
