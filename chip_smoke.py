@@ -3685,22 +3685,37 @@ def serve_params() -> dict:
     return params
 
 
+def check_no_plain_on_ranks(mesh, label: str) -> None:
+    """``check_no_plain_on_card`` on every rank of ``mesh`` together: the
+    ranks first sum their plain-version counts, so that every rank fails
+    when one does and none waits in a collective for a rank that
+    stopped."""
+    n = torch.tensor([float(sum(plain.cuda_calls.values()))], device="cuda")
+    if collectives.all_sum(mesh, n).item():
+        check_no_plain_on_card(label)
+        raise AssertionError(f"{label}: plain versions ran on the card on "
+                             f"another rank")
+
+
 def mesh_worker(rank: int, port: int, out: Path) -> None:
     """One of two ranks on the one card over gloo: fp32 serving of 32
     requests at batch 32 (16 a rank), then the stage-1 step at the fp32
-    parity batch (one utterance a rank), the collectives timed; rank 0
-    writes the results to ``out``."""
+    parity batch (one utterance a rank), each followed by the plain
+    versions' check on both ranks, the collectives timed; each rank
+    writes its results to ``out/rank<r>.pt``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     mesh_lib.multihost_init(f"tcp://localhost:{port}", 2, rank,
                             backend="gloo")
     mesh = mesh_lib.make_mesh()
+    reset_counts()
     params = serve_params()
     server, reqs = _mesh_serve(params, mesh, 32, "float32")
     t0 = time.perf_counter()
     res = server.serve_batch(reqs)
     torch.cuda.synchronize()
     t_serve = time.perf_counter() - t0
+    check_no_plain_on_ranks(mesh, f"fp32 serve on rank {rank}")
     cfg = train_config()
     cfg32 = dataclasses.replace(_no_dropout(cfg), runtime=RuntimeConfig(
         compute_dtype="float32"))
@@ -3711,28 +3726,29 @@ def mesh_worker(rank: int, port: int, out: Path) -> None:
     got = train_parity_run(cfg32, tparams, nb, "cuda", mesh=mesh)
     torch.cuda.synchronize()
     t_train = time.perf_counter() - t0
+    check_no_plain_on_ranks(mesh, f"fp32 stage-1 step on rank {rank}")
     grads = {k: v.cuda() for k, v in got["grads"].items()}
     mel = torch.zeros(32, 1024, cfg.model.audio.n_mels, device="cuda")
     times = collective_times(mesh, grads, torch.from_numpy(
         server.last_style_table), mel)
-    if rank == 0:
-        torch.save({"serve": {r.uid: (r.frames, r.mel) for r in res},
-                    "order": [r.uid for r in res],
-                    "requeued": len(server.requeued), "train": got,
-                    "ms": {"serve_batch": t_serve * 1e3,
-                           "stage-1 losses and gradients": t_train * 1e3},
-                    "collectives": times, "calls": dict(collectives.calls)},
-                   out)
+    torch.save({"serve": {r.uid: (r.frames, r.mel) for r in res},
+                "order": [r.uid for r in res],
+                "requeued": len(server.requeued), "train": got,
+                "plain": dict(plain.cuda_calls),
+                "ms": {"serve_batch": t_serve * 1e3,
+                       "stage-1 losses and gradients": t_train * 1e3},
+                "collectives": times, "calls": dict(collectives.calls)},
+               out / f"rank{rank}.pt")
     torch.distributed.destroy_process_group()
 
 
-def run_mesh_workers(card: str) -> dict:
+def run_mesh_workers(card: str) -> list[dict]:
     """``chip_smoke.py --mesh-rank r`` twice on this card, each rank's
     output kept under ``chiprun_out/``; both killed past
-    ``MESH_TIMEOUT``."""
+    ``MESH_TIMEOUT``.  Returns the two ranks' results."""
     out_dir = REPO / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    result = Path(tempfile.mkdtemp(prefix="mesh_")) / "rank0.pt"
+    result = Path(tempfile.mkdtemp(prefix="mesh_"))
     port = mesh_lib.free_port()
     procs, logs = [], []
     for r in range(2):
@@ -3760,9 +3776,28 @@ def run_mesh_workers(card: str) -> dict:
         tail = (out_dir / "mesh_rank0.log").read_text()[-3000:]
         raise AssertionError(f"a mesh rank failed (chiprun_out/mesh_rank*"
                              f".log): {tail}")
-    got = torch.load(result, weights_only=False)
-    shutil.rmtree(result.parent, ignore_errors=True)
+    got = [torch.load(result / f"rank{r}.pt", weights_only=False)
+           for r in range(2)]
+    shutil.rmtree(result, ignore_errors=True)
     return got
+
+
+def ranks_agree(a: dict, b: dict) -> bool:
+    """Whether two ranks returned the same results bit for bit: the serve
+    order, frames and mel per uid, the requeued count, and the stage-1
+    losses, gradients, codes and durations."""
+    ta, tb = a["train"], b["train"]
+    return (a["order"] == b["order"] and a["requeued"] == b["requeued"]
+            and a["serve"].keys() == b["serve"].keys()
+            and all(a["serve"][u][0] == b["serve"][u][0]
+                    and np.array_equal(a["serve"][u][1], b["serve"][u][1])
+                    for u in a["serve"])
+            and ta["losses"] == tb["losses"]
+            and ta["grads"].keys() == tb["grads"].keys()
+            and all(torch.equal(ta["grads"][k], tb["grads"][k])
+                    for k in ta["grads"])
+            and torch.equal(ta["indices"], tb["indices"])
+            and torch.equal(ta["durations"], tb["durations"]))
 
 
 def phase_mesh(card: str, serve_res: dict) -> dict:
@@ -3843,8 +3878,15 @@ def phase_mesh(card: str, serve_res: dict) -> dict:
     # two processes on the one card over gloo
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    got = run_mesh_workers(card)
+    got, got1 = run_mesh_workers(card)
     t_workers = time.perf_counter() - t0
+    same = ranks_agree(got, got1)
+    print(f"  two ranks: rank 1's serve results, losses, gradients, codes "
+          f"and durations equal to rank 0's: {same}; plain versions on "
+          f"the card {got['plain']} / {got1['plain']}")
+    if not same or got["plain"] or got1["plain"]:
+        raise AssertionError("the two ranks disagree, or a plain version "
+                             "ran on the card")
     cfg_s = serve_config(dtype="float32")
     res32 = Server(cfg_s, params, device="cuda").serve_batch(
         serve_requests(cfg_s, 32))

@@ -122,8 +122,13 @@ def all_sum(mesh, x: torch.Tensor, *, grad: bool = False) -> torch.Tensor:
 def pmean_grads(grads, mesh):
     """The mean of a gradient tree (a dict, possibly nested, or a list of
     tensors) over the data ranks, as a new tree of the same structure: one
-    ``all_reduce`` of the flattened fp32 tensors."""
+    ``all_reduce`` of the flattened fp32 tensors.  Over one rank the mean
+    is the tree itself, returned as it is."""
     calls["pmean_grads"] += 1
+    group = _group(mesh)
+    n = dist.get_world_size(group)
+    if n == 1:
+        return grads
     flat: list[torch.Tensor] = []
 
     def collect(tree):
@@ -137,8 +142,6 @@ def pmean_grads(grads, mesh):
             flat.append(tree)
 
     collect(grads)
-    group = _group(mesh)
-    n = dist.get_world_size(group)
     buf = torch.cat([g.reshape(-1).float() for g in flat])
     dist.all_reduce(buf, group=group)
     buf /= n

@@ -133,5 +133,7 @@ def batch_sharding(mesh: DeviceMesh) -> BatchSharding:
     return BatchSharding(mesh.get_local_rank(DATA_AXIS), mesh.size(0))
 
 
-def replicated(mesh: DeviceMesh) -> Replicated:
+def replicated(mesh: DeviceMesh | None = None) -> Replicated:
+    """The whole tensor on every rank (JAX's ``replicated(mesh)``; the
+    placement does not depend on the mesh)."""
     return Replicated()

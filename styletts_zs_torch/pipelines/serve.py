@@ -15,7 +15,13 @@ Counterpart of ``styletts_zs_tpu/pipelines/serve.py``:
      results;
   5. requeue a batch whose run raises a ``RuntimeError`` (out of device
      memory, say); a shape error (``ValueError``, ``TypeError``) or a kernel
-     fault (``kernels.build.KernelError``) propagates.
+     fault (``kernels.build.KernelError``) propagates.  With a mesh the
+     data ranks first agree on the batch's fate (``collectives.all_sum`` of
+     each rank's failure flags), before any gather: every rank requeues
+     the batch if one rank's run raised a ``RuntimeError``, and every rank
+     raises if one rank's raised anything else (``DataRankError`` where
+     its own run did not), as JAX's one program fails as one.  A collective's own error (``torch.distributed.DistError``)
+     propagates at once: the group cannot go on.
 The models are built once, on ``device`` (the card by default): no module
 depends on the bucket's frame count, so one program per (bucket, batch,
 text length) shares them.  Every batch starts from the same initial noise,
@@ -32,6 +38,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from styletts_zs_torch.config import Config
 from styletts_zs_torch.ops import stft as stft_ops
@@ -39,6 +46,11 @@ from styletts_zs_torch.parallel import bucketing, collectives
 from styletts_zs_torch.parallel import mesh as mesh_lib
 from styletts_zs_torch.pipelines.factory import build_models, resolve_device
 from styletts_zs_torch.pipelines.infer import _synthesis_program
+
+
+class DataRankError(Exception):
+    """Another data rank's run of the batch raised an error that is not
+    requeued: every rank stops serving."""
 
 
 @dataclass
@@ -72,7 +84,7 @@ class Server:
         self.device = resolve_device(device)
         self.mesh = mesh
         self.sharding = (mesh_lib.batch_sharding(mesh) if mesh is not None
-                         else mesh_lib.Replicated())
+                         else mesh_lib.replicated())
         if mesh is not None and cfg.serve.batch_size % self.sharding.count:
             raise ValueError(f"serve.batch_size {cfg.serve.batch_size} does "
                              f"not split over {self.sharding.count} data "
@@ -171,11 +183,43 @@ class Server:
                 try:
                     results.extend(self._dispatch(bucket, phon, tlen, refs,
                                                   group))
+                except dist.DistError:
+                    raise
                 except RuntimeError as e:
                     print(f"serve: bucket {bucket} batch of {len(group)} "
                           f"failed, requeued: {e!r}", file=sys.stderr)
                     self.requeued.extend(group)
         return results
+
+    def _dispatch(self, bucket, phon, tlen, refs, group) -> list[Result]:
+        """The batch's results; raises a ``RuntimeError`` on every data rank
+        when one rank's run raised one, and ``err`` or ``DataRankError``
+        on every rank when one rank's run raised anything else (the ranks
+        agree before any gather)."""
+        try:
+            out, err = self._run(bucket, phon, tlen, refs), None
+        except dist.DistError:
+            raise
+        except Exception as e:  # noqa: BLE001 -- every rank must agree
+            out, err = None, e
+        requeue = isinstance(err, RuntimeError)
+        fatal = err is not None and not requeue
+        if self.mesh is not None:
+            flags = torch.tensor([requeue, fatal], dtype=torch.float32,
+                                 device=self.device)
+            n_requeue, n_fatal = collectives.all_sum(self.mesh, flags).tolist()
+            requeue, fatal = n_requeue > 0, n_fatal > 0
+        if fatal:
+            if err is not None and not isinstance(err, RuntimeError):
+                raise err
+            raise DataRankError(f"serve: bucket {bucket}: another data "
+                                f"rank's run failed") from err
+        if requeue:
+            if err is not None:
+                raise err
+            raise RuntimeError(f"serve: bucket {bucket}: another data "
+                               f"rank's run failed")
+        return self._collect(out, group)
 
     def _initial_noise(self, B: int) -> torch.Tensor:
         """The batch's (B, K, d_style) initial noise: the server's, or a
@@ -188,7 +232,9 @@ class Server:
                            generator=torch.Generator(
                                device=self.device).manual_seed(0))
 
-    def _dispatch(self, bucket, phon, tlen, refs, group) -> list[Result]:
+    def _run(self, bucket, phon, tlen, refs):
+        """This rank's rows of the batch through the bucket's program:
+        (mel, frame lengths, waveform or None) on the device."""
         B = phon.shape[0]
         take = self.sharding.take
         phon, tlen, refs = take(phon), take(tlen), take(refs)
@@ -200,7 +246,12 @@ class Server:
         out, wav = fn(torch.from_numpy(phon).to(self.device),
                       torch.from_numpy(tlen).to(self.device), ref_mel,
                       ref_lengths, take(self._initial_noise(B)))
-        mel, frames = out.mel, out.frame_lengths
+        return out.mel, out.frame_lengths, wav
+
+    def _collect(self, out, group) -> list[Result]:
+        """The batch's results: with a mesh every rank's rows gathered, in
+        rank order (the whole batch)."""
+        mel, frames, wav = out
         if self.mesh is not None:
             # every rank's rows, in rank order: the whole batch
             mel = collectives.gather_rows(self.mesh, mel)

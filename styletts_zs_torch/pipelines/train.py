@@ -100,11 +100,11 @@ class _OneProcess:
     def total(self, x):
         return x
 
-    def gather(self, x):
+    def gather(self, x, grad: bool = True):
         return x
 
-    def batch_mean(self, x):
-        return x.mean(dim=0)
+    # ``fsq.entropy_losses`` takes its own batch mean
+    batch_mean = None
 
     def rows(self, x):
         return x
@@ -131,8 +131,8 @@ class _DataAxis:
     def total(self, x):
         return collectives.all_sum(self.mesh, x)
 
-    def gather(self, x):
-        return collectives.gather_rows(self.mesh, x, grad=True)
+    def gather(self, x, grad: bool = True):
+        return collectives.gather_rows(self.mesh, x, grad=grad)
 
     def batch_mean(self, x):
         return collectives.all_sum(self.mesh, x.sum(dim=0), grad=True) \
@@ -570,13 +570,11 @@ class _DiffusionTrainer:
                                     allow_unused=True)
         grads = {k: torch.zeros_like(p) if g is None else g.float()
                  for (k, p), g in zip(named, grads)}
-        if self.dp.n == 1:
-            return loss, aux, grads
         scalars = {k: v.detach() for k, v in aux.items() if v.ndim == 0}
         grads, scalars = self.dp.mean((grads, scalars))
-        rows = {k: collectives.gather_rows(self.dp.mesh, v.detach())
-                for k, v in aux.items() if v.ndim > 0}
-        return loss, {**scalars, **rows}, grads
+        return loss, {k: scalars[k] if k in scalars
+                      else self.dp.gather(v.detach(), grad=False)
+                      for k, v in aux.items()}, grads
 
     def _draw(self, shape, kind: str):
         """A draw of this rank's rows of a global (n * shape[0], ...) draw
@@ -619,17 +617,16 @@ class Stage2Trainer(_DiffusionTrainer):
         text_mask, tokens, summary, (text_enc, _) = self._condition(
             batch, prosody=False)
         B = styled.shape[0]
+        # in the order ``StyleDiffusion.forward`` would draw them
         if drop is None:
             drop = self._draw((B,), "rand") < m.diffusion.cond_dropout
-        if self.dp.n > 1:
-            # the one-process step's order of draws: drop, n, noise
-            if n is None:
-                n = self._draw((B,), "randn")
-            if noise is None:
-                noise = self._draw(styled.shape, "randn")
+        if n is None:
+            n = self._draw((B,), "randn")
+        if noise is None:
+            noise = self._draw(styled.shape, "randn")
         loss, _ = self.diffusion(styled, text_enc, tokens, summary,
                                  text_mask=text_mask, drop_prompt=drop, n=n,
-                                 noise=noise, rng=self.rng)
+                                 noise=noise)
         return loss, {"diff": loss}
 
     def train_step(self, state: DiffusionTrainState, batch, **draws):

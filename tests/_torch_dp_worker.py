@@ -7,7 +7,8 @@ runs as one rank of the process group that torchrun's environment names
 (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``; ``GROUP_RANK``
 the rank's host) and writes ``OUT_DIR/rank<r>.pt``: the mesh's shape, the
 collectives' outputs, the two-host plan, ``Server(mesh=)``'s results, the
-synthesis on the mesh, and the three trainers' data-parallel losses,
+synthesis on the mesh, ``Server(mesh=)`` with a failure planted on one
+rank, and the three trainers' data-parallel losses,
 gradients and two steps, each on the global batch that ``run`` makes from
 fixed seeds; with ``--hosts``, only the exchanges between hosts, into
 ``OUT_DIR/hosts<r>.pt``.  Tiny config, dropout 0, one thread.
@@ -93,6 +94,40 @@ def _cpu(tree):
     return tree.detach().cpu().clone()
 
 
+def planted_failures(server, cfg, mesh) -> dict:
+    """The last data rank's run of the first batch raises, the others'
+    not: first a ``RuntimeError`` (every rank should requeue that batch
+    and serve the rest), then a ``ValueError`` (every rank should raise).
+    Per exception: the requeued uids, the results' order and (frames, mel)
+    per uid, or the name of the exception this rank raised."""
+    sharding = mesh_lib.batch_sharding(mesh)
+    last = sharding.index == sharding.count - 1
+    run = server._run
+    res = {}
+    for exc in (RuntimeError("planted"), ValueError("planted")):
+        first = [True]
+
+        def planted(*args):
+            if first[0]:
+                first[0] = False
+                if last:
+                    raise exc
+            return run(*args)
+        server._run = planted
+        server.requeued = []
+        try:
+            got = server.serve_batch(requests(cfg))
+            res[type(exc).__name__] = {
+                "requeued": [r.uid for r in server.requeued],
+                "order": [r.uid for r in got],
+                "serve": {r.uid: (r.frames, r.mel) for r in got}}
+        except Exception as e:  # noqa: BLE001 -- the test reads the kind
+            res[type(exc).__name__] = {"raised": type(e).__name__}
+    server._run = run
+    server.requeued = []
+    return res
+
+
 def run(mesh) -> dict:
     """Everything the checks compare, on ``mesh``'s ranks or (``mesh``
     None) in one process.  oneDNN is off: its convolutions pick their
@@ -105,7 +140,7 @@ def run(mesh) -> dict:
 def _run(mesh) -> dict:
     cfg = config()
     sharding = mesh_lib.batch_sharding(mesh) if mesh is not None else \
-        mesh_lib.Replicated()
+        mesh_lib.replicated()
     rows = sharding.take
     out: dict = {}
     if mesh is not None:
@@ -131,6 +166,8 @@ def _run(mesh) -> dict:
     out["serve_order"] = [r.uid for r in res]
     out["serve_table"] = server.last_style_table
     out["serve_plan"] = server.plan(requests(scfg)).batches_per_bucket
+    if mesh is not None:
+        out["serve_planted"] = planted_failures(server, scfg, mesh)
 
     # the synthesis program with the vocoder on the mesh's rows
     m = cfg.model

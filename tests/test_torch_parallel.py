@@ -24,7 +24,7 @@ import pytest
 import torch
 
 import _torch_dp_worker as W
-from _torch_parity import run_group
+from _torch_parity import load_chip_smoke, run_group
 from styletts_zs_tpu.parallel import bucketing as j_bucketing
 from styletts_zs_tpu.parallel import collectives as j_coll
 from styletts_zs_tpu.parallel import mesh as j_mesh
@@ -105,8 +105,18 @@ def test_batch_sharding_takes_contiguous_rows():
     x = np.arange(8)
     assert sh.take(x).tolist() == [2, 3]
     assert mesh_lib.Replicated().take(x) is x
+    assert mesh_lib.replicated().take(x) is x
     with pytest.raises(ValueError):
         sh.take(np.arange(6))
+
+
+def test_pmean_grads_over_one_rank_returns_the_tree():
+    mesh = mesh_lib.make_mesh(devices="cpu")
+    try:
+        tree = {"a": torch.ones(3), "b": [torch.zeros(2, 2)]}
+        assert collectives.pmean_grads(tree, mesh) is tree
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 def test_multihost_init_without_an_address_is_false(monkeypatch):
@@ -114,6 +124,37 @@ def test_multihost_init_without_an_address_is_false(monkeypatch):
         monkeypatch.delenv(k, raising=False)
     assert mesh_lib.multihost_init() is False
     assert not torch.distributed.is_initialized()
+
+
+def test_chip_smoke_ranks_agree_only_bit_for_bit():
+    """``chip_smoke.py``'s comparison of its two card ranks, rehearsed on
+    CPU results: equal results agree; one gradient one ulp off, a mel, a
+    frame count or a loss changed do not."""
+    cs = load_chip_smoke()
+    g = torch.randn(3, 2, generator=torch.Generator().manual_seed(0))
+
+    def result():
+        return {"order": [1, 0], "requeued": 0,
+                "serve": {0: (5, np.ones((5, 2), np.float32)),
+                          1: (4, np.zeros((4, 2), np.float32))},
+                "train": {"losses": {"mel": 0.5}, "grads": {"w": g.clone()},
+                          "indices": torch.arange(4),
+                          "durations": torch.ones(2, 3)}}
+    a = result()
+    assert cs.ranks_agree(a, result())
+    b = result()
+    b["train"]["grads"]["w"][0, 0] = torch.nextafter(g[0, 0],
+                                                     torch.tensor(1e9))
+    assert not cs.ranks_agree(a, b)
+    b = result()
+    b["serve"][0][1][0, 0] = 2.0
+    assert not cs.ranks_agree(a, b)
+    b = result()
+    b["serve"][1] = (3, b["serve"][1][1])
+    assert not cs.ranks_agree(a, b)
+    b = result()
+    b["train"]["losses"]["mel"] = 0.25
+    assert not cs.ranks_agree(a, b)
 
 
 # --- collectives against JAX ---------------------------------------------------
@@ -201,6 +242,30 @@ def test_server_with_mesh_equals_one_process(group, reference):
             assert rank["serve"][uid][0] == frames
             np.testing.assert_allclose(rank["serve"][uid][1], mel,
                                        atol=SYNTH_TOL, rtol=SYNTH_TOL)
+
+
+def test_server_ranks_agree_on_a_failure_of_one_rank(group, reference):
+    """The last rank's run of the first batch raises, the others' not.  A
+    ``RuntimeError``: every rank requeues that batch (the first of the
+    one-process dispatch order) and serves the rest as one process does.
+    A ``ValueError``: it propagates on that rank and every other rank
+    raises ``DataRankError``; no rank gathers another batch's rows, and
+    none hangs (the group's timeout)."""
+    ref_order = reference["serve_order"]
+    n = group["n"]
+    for r, rank in enumerate(group["ranks"]):
+        got = rank["serve_planted"]["RuntimeError"]
+        k = len(got["requeued"])
+        assert 0 < k <= W.GLOBAL_BATCH
+        assert got["requeued"] == ref_order[:k]
+        assert got["order"] == ref_order[k:]
+        for uid in got["order"]:
+            frames, mel = reference["serve"][uid]
+            assert got["serve"][uid][0] == frames
+            np.testing.assert_allclose(got["serve"][uid][1], mel,
+                                       atol=SYNTH_TOL, rtol=SYNTH_TOL)
+        assert rank["serve_planted"]["ValueError"] == {
+            "raised": "ValueError" if r == n - 1 else "DataRankError"}
 
 
 def test_synthesis_on_a_data_mesh_equals_one_process(group, reference):

@@ -13,14 +13,18 @@ rounding (10^-k for k decimals); counts and rates equal.  The wiring is
 held on the port's own runs of 2-3 steps: which tree goes to which stage,
 gate and bundle, the schedule and the stage-3 pool as the script derives
 them, ``--stop-after``, ``--skip-stage1/2`` and ``--resume-stage1/2``.
-One thread.
+One thread; the JAX script runs in a process of its own
+(``tests/_jax_pipeline_run.py``), started with the file's first test, and
+the cases that compare with it come last.
 """
 import copy
-import importlib.util
 import json
+import os
 import shutil
+import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -28,8 +32,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import (jax_tiny, random_tree, run_module, to_jax,
-                           torch_tiny)
+from _torch_parity import jax_tiny, random_tree, run_module, torch_tiny
 from styletts_zs_torch.config import replace
 from styletts_zs_torch.pipelines import pipeline as P
 from styletts_zs_torch.pipelines import train as PT
@@ -38,6 +41,7 @@ from styletts_zs_torch.pipelines.convert import convert_params
 
 REPO = Path(__file__).resolve().parent.parent
 ATOL = RTOL = 1e-4
+JAX_TIMEOUT = 600      # seconds the JAX script's process may take
 EXACT = {"dur_mae_frames", "dur_exact_match", "style_latent_mse_seeds",
          "retrieval_acc", "retrieval_chance", "synthesis_shape"}
 # decimals JAX rounds each key to (default 5; the margins 4, the proxy 3)
@@ -59,46 +63,38 @@ def world():
             "pp": convert_params(tree, torch_tiny())}
 
 
-def _jax_script():
-    spec = importlib.util.spec_from_file_location(
-        "train_pipeline", REPO / "scripts" / "train_pipeline.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+@pytest.fixture(scope="module", autouse=True)
+def jax_child(tmp_path_factory):
+    """The JAX script at 0 steps a stage on the random tree
+    (``tests/_jax_pipeline_run.py``), started in a process of its own
+    before the first test of this file, so that it runs beside the port's
+    own runs; killed at the end of the file if it is still running."""
+    work = tmp_path_factory.mktemp("jax_pipeline")
+    env = dict(os.environ, PYTHONPATH=str(REPO), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu",
+               JAX_DEFAULT_MATMUL_PRECISION="highest")
+    proc = subprocess.Popen(
+        [sys.executable, str(REPO / "tests" / "_jax_pipeline_run.py"),
+         str(work)], cwd=REPO, env=env, text=True, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE)
+    yield {"proc": proc, "work": work}
+    if proc.poll() is None:
+        proc.kill()
+        proc.communicate()
 
 
 @pytest.fixture(scope="module")
-def jax_run(world, tmp_path_factory):
-    """The JAX script at 0 steps a stage on the random tree: its report,
-    and the configs its three trainers were made with."""
-    import styletts_zs_tpu.pipelines.factory as j_factory
-    import styletts_zs_tpu.pipelines.train as j_train
-    mp = pytest.MonkeyPatch()
-    work = tmp_path_factory.mktemp("jax_pipeline")
-    made = {}
-
-    def spy(name, cls):
-        class Spy(cls):
-            def __init__(self, cfg, *a, **k):
-                made[name] = cfg.train
-                super().__init__(cfg, *a, **k)
-        mp.setattr(j_train, name, Spy)
-
-    for name in ("Stage1Trainer", "Stage2Trainer", "Stage3Trainer"):
-        spy(name, getattr(j_train, name))
-    mp.setattr(j_factory, "init_params",
-               lambda cfg, rng, with_discriminator=False: to_jax(
-                   world["tree"]))
-    mp.setenv("STYLETTS_JAX_CACHE", str(work / "cache"))
-    mp.setattr(sys, "argv", ["train_pipeline.py", "--tiny", "--steps1", "0",
-                             "--steps2", "0", "--steps3", "0",
-                             "--workdir", str(work)])
-    try:
-        _jax_script().main()
-    finally:
-        mp.undo()
+def jax_run(jax_child):
+    """The JAX script's report, and the schedule of the configs its three
+    trainers were made with."""
+    proc, work = jax_child["proc"], jax_child["work"]
+    _, err = proc.communicate(timeout=JAX_TIMEOUT)
+    assert proc.returncode == 0, err[-3000:]
     with open(work / "quality_report.json") as f:
-        return {"report": json.load(f), "trainers": made}
+        report = json.load(f)
+    with open(work / "trainers.json") as f:
+        made = {k: SimpleNamespace(**v) for k, v in json.load(f).items()}
+    return {"report": report, "trainers": made}
 
 
 def jax_draws(jcfg):
@@ -190,50 +186,10 @@ def _close(got, ref, key="", decimals=5):
             (key, got, ref)
 
 
-# --- against the JAX script ---------------------------------------------------
-
-def test_report_keys_and_nesting_equal_jax(port_run, jax_run):
-    assert list(port_run["report"]) == list(jax_run["report"])
-    assert _structure(port_run["report"]) == _structure(jax_run["report"])
-
-
-@pytest.mark.parametrize("key", ["stage1", "stage1_curve",
-                                 "stage1_gt_margin", "fsq_usage"])
-def test_deterministic_gates_equal_jax(port_run, jax_run, key):
-    got, ref = port_run["report"][key], jax_run["report"][key]
-    if key == "fsq_usage":
-        assert got == ref
-    else:
-        _close(got, ref, decimals=4 if key == "stage1_gt_margin" else 5)
-
-
-@pytest.mark.parametrize("key", ["stage2", "stage2_curve", "stage3",
-                                 "stage3_curve", "final"])
-def test_stochastic_gates_equal_jax_on_its_draws(port_run, jax_run, key):
-    got, ref = port_run["report"][key], jax_run["report"][key]
-    if key == "final":
-        _close(got["speaker_sim_proxy"], ref["speaker_sim_proxy"],
-               decimals=3)
-        got = {k: v for k, v in got.items() if k != "speaker_sim_proxy"}
-        ref = {k: v for k, v in ref.items() if k != "speaker_sim_proxy"}
-        _close(got, ref, decimals=4)
-    else:
-        _close(got, ref)
-
-
 def test_gate_draws_are_asked_in_jax_order(port_run):
     assert port_run["asked"] == [("stage2", 0), ("stage2_raw", 0),
                                  ("stage2_g1", 0), ("stage3", 0),
                                  ("final", 0), ("final_held_out", 0)]
-
-
-@pytest.mark.parametrize("stage", ["Stage1Trainer", "Stage2Trainer",
-                                   "Stage3Trainer"])
-def test_stage_schedule_equals_jax(port_run, jax_run, stage):
-    """``stage_cfg`` at 0 steps, as the script made each trainer's."""
-    got, ref = port_run["trainers"][stage], jax_run["trainers"][stage]
-    assert (got.n_steps, got.warmup_steps, got.lr) == \
-        (ref.n_steps, ref.warmup_steps, ref.lr)
 
 
 @pytest.mark.parametrize("n", [0, 1, 9, 10, 55, 100000])
@@ -428,3 +384,43 @@ def test_command_line_runs_and_writes_a_loadable_bundle(tmp_path):
 def test_refuses_without_a_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         P.run_pipeline(steps1=0, steps2=0, steps3=0)
+
+
+# --- against the JAX script (last: its process runs beside the tests above) --
+
+def test_report_keys_and_nesting_equal_jax(port_run, jax_run):
+    assert list(port_run["report"]) == list(jax_run["report"])
+    assert _structure(port_run["report"]) == _structure(jax_run["report"])
+
+
+@pytest.mark.parametrize("key", ["stage1", "stage1_curve",
+                                 "stage1_gt_margin", "fsq_usage"])
+def test_deterministic_gates_equal_jax(port_run, jax_run, key):
+    got, ref = port_run["report"][key], jax_run["report"][key]
+    if key == "fsq_usage":
+        assert got == ref
+    else:
+        _close(got, ref, decimals=4 if key == "stage1_gt_margin" else 5)
+
+
+@pytest.mark.parametrize("key", ["stage2", "stage2_curve", "stage3",
+                                 "stage3_curve", "final"])
+def test_stochastic_gates_equal_jax_on_its_draws(port_run, jax_run, key):
+    got, ref = port_run["report"][key], jax_run["report"][key]
+    if key == "final":
+        _close(got["speaker_sim_proxy"], ref["speaker_sim_proxy"],
+               decimals=3)
+        got = {k: v for k, v in got.items() if k != "speaker_sim_proxy"}
+        ref = {k: v for k, v in ref.items() if k != "speaker_sim_proxy"}
+        _close(got, ref, decimals=4)
+    else:
+        _close(got, ref)
+
+
+@pytest.mark.parametrize("stage", ["Stage1Trainer", "Stage2Trainer",
+                                   "Stage3Trainer"])
+def test_stage_schedule_equals_jax(port_run, jax_run, stage):
+    """``stage_cfg`` at 0 steps, as the script made each trainer's."""
+    got, ref = port_run["trainers"][stage], jax_run["trainers"][stage]
+    assert (got.n_steps, got.warmup_steps, got.lr) == \
+        (ref.n_steps, ref.warmup_steps, ref.lr)
