@@ -30,7 +30,9 @@ Phases, one line each with its seconds:
                   bf16 also at Tk 272 with the denoiser's mask and Tq 50
                   and 16, and
                   the cuDNN kernels that the library calls of the two convs
-                  launch;
+                  launch; rows 6, 7 and 10 also at the tensor-parallel
+                  step's chunk shapes (512 -> 256 and 512 -> 128, row 6's
+                  128-channel block beside the 256 one);
   4. main path  — zero-shot 1-step synthesis with the vocoder at full width
                   (``bench.py``'s configuration: 256 phonemes, 1024 frames,
                   bf16, weights from a seed) at batch 1 and 32, checking the
@@ -124,11 +126,22 @@ Phases, one line each with its seconds:
                   ``Server``, and the stage-1 step with ``mesh=`` at the
                   fp32 parity batch equal to the step without (then one
                   bf16 step at 16 x 1024 for its launches); then two ranks
-                  of this script (``--mesh-rank``) on the one card over
-                  gloo: fp32 serving of 32 requests at batch 32 (16 a rank)
-                  within 1e-4 of one process, the stage-1 step with one
-                  utterance a rank against the one-process step; the
+                  of this script (``--rank-job mesh``) on the one card
+                  over gloo: fp32 serving of 32 requests at batch 32 (16 a
+                  rank) within 1e-4 of one process, the stage-1 step with
+                  one utterance a rank against the one-process step; the
                   collectives' calls and ms per call;
+     tensor     — tensor parallelism (the ``model`` axis): two ranks of this
+                  script (``--rank-job tensor``) at (data 1, model 2) on
+                  the one card over gloo, at full width: the stage-1 step's
+                  fp32 losses and whole gradients at the parity batch
+                  against one process, rank 1 bit-equal to rank 0, then
+                  the bf16 step at 16 x 1024 (ms, launches per rank as the
+                  one-process step's, the generator bytes a rank holds,
+                  peak memory, the model axis's collectives' calls and ms);
+                  ``dryrun_multichip(4)`` as four gloo ranks
+                  (``--rank-job dryrun``); ``scaling_bench --mesh 1`` at
+                  full width over NCCL at world size 1;
  18. verify     — the numerics gate, acceptance level 1
                   (``run_verification(max_frames=256, device="cuda")``);
  19. acceptance — acceptance level 2 at full size (batch 8 x 1024 frames,
@@ -199,7 +212,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 from styletts_zs_torch.config import (Config, ModelConfig,  # noqa: E402
                                       RuntimeConfig, ServeConfig,
                                       load_config)
-from styletts_zs_torch import cli  # noqa: E402
+from styletts_zs_torch import cli, graft_entry, scaling_bench  # noqa: E402
 from styletts_zs_torch.bench import mel_mae  # noqa: E402
 from styletts_zs_torch.kernels import adain_conv as ac_kernel  # noqa: E402
 from styletts_zs_torch.kernels import build, dispatch, plain  # noqa: E402
@@ -217,6 +230,8 @@ from styletts_zs_torch.ops.attention import length_mask  # noqa: E402
 from styletts_zs_torch.parallel import bucketing  # noqa: E402
 from styletts_zs_torch.parallel import collectives  # noqa: E402
 from styletts_zs_torch.parallel import mesh as mesh_lib  # noqa: E402
+from styletts_zs_torch.parallel import sharding as sharding_lib  # noqa: E402
+from styletts_zs_torch.parallel import tensor as tensor_lib  # noqa: E402
 from styletts_zs_torch.pipelines import acceptance  # noqa: E402
 from styletts_zs_torch.pipelines.acceptance import (  # noqa: E402
     base_config, run_acceptance, synth_inputs)
@@ -1084,17 +1099,18 @@ def _conv_time_label(ms, plain_ms, library_ms, bms, by, card) -> str:
             f"{library_ms:.4f} ms, bound {bms:.4f} ms ({by})  [{card}]")
 
 
-def _adain_inputs(B: int, T: int, dtype, g, *, time_varying: bool):
+def _adain_inputs(B: int, T: int, dtype, g, *, time_varying: bool,
+                  c_out: int = 512):
     """x (B, T, 512) and pass 1's scale/shift as the decoder hands them over:
     strided views at channel offsets 0 and 2C of the style projection's
     (B, T, 4C) output (or of a (B, 4C) global one); the statistics of x; a
-    K 5 weight (K, C, C)."""
+    K 5 weight (K, C, c_out): c_out below C is a tensor-parallel chunk."""
     C, K = 512, 5
     x = torch.randn(B, T, C, generator=g, device="cuda").to(dtype)
     mod_shape = (B, T, 4 * C) if time_varying else (B, 4 * C)
     mod = (0.3 * torch.randn(*mod_shape, generator=g, device="cuda")).to(dtype)
     scale, shift = mod.split(2 * C, dim=-1)
-    w = (torch.randn(K, C, C, generator=g, device="cuda")
+    w = (torch.randn(K, C, c_out, generator=g, device="cuda")
          * (K * C) ** -0.5).to(dtype)
     return (x, scale[..., :C], shift[..., :C], *ac_kernel.instance_stats(x),
             w)
@@ -1188,7 +1204,60 @@ def check_adain_conv(card: str) -> dict:
             else:
                 res[f"{label}_d{d}"] = entry
         del args, glob, h
+    res.update(_check_adain_conv_chunks(card, g, errs))
     res["max_abs_err"] = max(errs)
+    return res
+
+
+# The tensor-parallel stage-1 step's chunks of the decoder's 512 output
+# channels at the train step's shape: model 2 (the 256-channel block) and
+# model 4 (the 128-channel block, m64n128k16).
+TP_CHUNKS = (256, 128)
+TP_SHAPE = (16, 1024)
+
+
+def _check_adain_conv_chunks(card: str, g, errs: list) -> dict:
+    """Row 6 on the weight chunks ``TP_CHUNKS`` at ``TP_SHAPE``: bf16 at
+    dilations 1, 3 and 9 with time-varying and global style, fp32 at d 1;
+    times at bf16, and the two blocks set side by side on the same work
+    (one 512 -> 256 launch against two 512 -> 128 launches)."""
+    B, T = TP_SHAPE
+    res, d1 = {}, {}
+    for c_out in TP_CHUNKS:
+        for dtype in (torch.float32, torch.bfloat16):
+            for tv in (True, False):
+                args = _adain_inputs(B, T, dtype, g, time_varying=tv,
+                                     c_out=c_out)
+                for d in ((1, 3, 9) if dtype == torch.bfloat16 else (1,)):
+                    out = ac_kernel.adain_conv_pass_cuda(*args, dilation=d)
+                    ref = ac_kernel.adain_conv_pass_plain(*args, dilation=d)
+                    torch.cuda.synchronize()
+                    errs.append(check_close(
+                        "adain_conv", f"chunk 512->{c_out} d{d}"
+                        f"{'' if tv else ' global'}", dtype, out, ref))
+        args = _adain_inputs(B, T, torch.bfloat16, g, time_varying=True,
+                             c_out=c_out)
+        for d in (1, 3, 9):
+            bms, by = bound_ms(*_adain_work(*args[:3], args[5], d),
+                               BF16_FLOP_PER_S)
+            ms = cuda_ms(lambda: ac_kernel.adain_conv_pass_cuda(
+                *args, dilation=d))
+            plain_ms = cuda_ms(lambda: ac_kernel.adain_conv_pass_plain(
+                *args, dilation=d), iters=3)
+            library_ms = cuda_ms(lambda: _adain_library(*args, d), iters=5)
+            print(f"  adain_conv bf16 tensor-parallel chunk B{B} T{T} "
+                  f"512->{c_out} K5 d{d} ({ac_kernel.sm90_tile(c_out)}-"
+                  f"channel block): "
+                  + _conv_time_label(ms, plain_ms, library_ms, bms, by, card))
+            res[f"chunk_{c_out}_d{d}"] = {
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                "bound_by": by, "library_ms": library_ms}
+            if d == 1:
+                d1[c_out] = ms
+        del args
+    print(f"  adain_conv the same work, 512->256 at B{B} T{T} d1: one launch "
+          f"on the 256-channel block {d1[256]:.4f} ms, two on the 128-channel "
+          f"block {2 * d1[128]:.4f} ms  [{card}]")
     return res
 
 
@@ -1197,7 +1266,9 @@ def check_adain_conv(card: str) -> dict:
 _CONVT_CASES = {"long_form_stage1": (4, 4864, 512, 256),
                 "long_form_stage2": (4, 24320, 256, 128),
                 "one_step_b32_stage1": (32, 1024, 512, 256),
-                "one_step_b32_stage2": (32, 5120, 256, 128)}
+                "one_step_b32_stage2": (32, 5120, 256, 128),
+                # the tensor-parallel step's up0 chunk at model 2
+                "chunk_train_stage1": (16, 1024, 512, 128)}
 
 
 def _convt_inputs(B, T, C_in, C_out, dtype, g):
@@ -1580,6 +1651,42 @@ def check_adain_conv_bwd(card: str) -> dict:
             res.update(entry)
         else:
             res[f"d{d}"] = entry
+    # the tensor-parallel step's chunks: dc of 256 (model 2) and 128
+    # (model 4) output channels, a partial dh over all 512 input channels
+    for c_out in TP_CHUNKS:
+        for dtype in (torch.float32, torch.bfloat16):
+            for tv in (True, False):
+                args = _adain_inputs(B, T, dtype, g, time_varying=tv,
+                                     c_out=c_out)
+                dc = torch.randn(B, T, c_out, generator=g,
+                                 device="cuda").to(dtype)
+                for d in ((1, 3, 9) if dtype == torch.bfloat16 else (1,)):
+                    out = ac_kernel.adain_conv_bwd_data_cuda(dc, *args,
+                                                             dilation=d)
+                    ref = ac_kernel.adain_conv_bwd_data_plain(dc, *args,
+                                                              dilation=d)
+                    torch.cuda.synchronize()
+                    errs.append(check_close(
+                        "adain_conv_bwd_data", f"chunk dc {c_out} d{d}"
+                        f"{'' if tv else ' global'}", dtype, out, ref))
+        args = _adain_inputs(B, T, torch.bfloat16, g, time_varying=True,
+                             c_out=c_out)
+        dc = torch.randn(B, T, c_out, generator=g, device="cuda").to(
+            torch.bfloat16)
+        n_bytes, flops = _adain_work(*args[:3], args[5], 1)
+        bms, by = bound_ms(n_bytes + dc.numel() * 2, flops, BF16_FLOP_PER_S)
+        ms = cuda_ms(lambda: ac_kernel.adain_conv_bwd_data_cuda(
+            dc, *args, dilation=1))
+        plain_ms = cuda_ms(lambda: ac_kernel.adain_conv_bwd_data_plain(
+            dc, *args, dilation=1), iters=3)
+        library_ms = cuda_ms(lambda: _adain_bwd_library(dc, *args, 1),
+                             iters=5)
+        print(f"  adain_conv_bwd_data bf16 tensor-parallel chunk B{B} T{T} "
+              f"dc {c_out} -> partial dh 512, K5 d1: "
+              + _conv_time_label(ms, plain_ms, library_ms, bms, by, card))
+        res[f"chunk_{c_out}"] = {"ms": ms, "plain_ms": plain_ms,
+                                 "bound_ms": bms, "bound_by": by,
+                                 "library_ms": library_ms}
     res["max_abs_err"] = max(errs)
     return res
 
@@ -2272,6 +2379,7 @@ def train_parity_run(cfg: Config, params, nb, device, mesh=None) -> dict:
                             else mesh_lib.batch_sharding(mesh))
     tr.load(state.g_params, state.d_params)
     _, g_aux, g_grads = tr.g_grads(batch)
+    g_grads = tr.whole(g_grads)      # a tensor-parallel rank's chunks
     _, d_aux, d_grads = tr.d_grads(batch)
     ac, m = tr.acoustic, cfg.model
     with torch.no_grad():
@@ -3687,26 +3795,22 @@ def serve_params() -> dict:
 
 def check_no_plain_on_ranks(mesh, label: str) -> None:
     """``check_no_plain_on_card`` on every rank of ``mesh`` together: the
-    ranks first sum their plain-version counts, so that every rank fails
-    when one does and none waits in a collective for a rank that
-    stopped."""
+    ranks (of both axes) first sum their plain-version counts, so that
+    every rank fails when one does and none waits in a collective for a
+    rank that stopped."""
     n = torch.tensor([float(sum(plain.cuda_calls.values()))], device="cuda")
-    if collectives.all_sum(mesh, n).item():
+    torch.distributed.all_reduce(n)
+    if n.item():
         check_no_plain_on_card(label)
         raise AssertionError(f"{label}: plain versions ran on the card on "
                              f"another rank")
 
 
-def mesh_worker(rank: int, port: int, out: Path) -> None:
+def mesh_worker(rank: int) -> dict:
     """One of two ranks on the one card over gloo: fp32 serving of 32
     requests at batch 32 (16 a rank), then the stage-1 step at the fp32
     parity batch (one utterance a rank), each followed by the plain
-    versions' check on both ranks, the collectives timed; each rank
-    writes its results to ``out/rank<r>.pt``."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    mesh_lib.multihost_init(f"tcp://localhost:{port}", 2, rank,
-                            backend="gloo")
+    versions' check on both ranks, the collectives timed."""
     mesh = mesh_lib.make_mesh()
     reset_counts()
     params = serve_params()
@@ -3731,40 +3835,40 @@ def mesh_worker(rank: int, port: int, out: Path) -> None:
     mel = torch.zeros(32, 1024, cfg.model.audio.n_mels, device="cuda")
     times = collective_times(mesh, grads, torch.from_numpy(
         server.last_style_table), mel)
-    torch.save({"serve": {r.uid: (r.frames, r.mel) for r in res},
-                "order": [r.uid for r in res],
-                "requeued": len(server.requeued), "train": got,
-                "plain": dict(plain.cuda_calls),
-                "ms": {"serve_batch": t_serve * 1e3,
-                       "stage-1 losses and gradients": t_train * 1e3},
-                "collectives": times, "calls": dict(collectives.calls)},
-               out / f"rank{rank}.pt")
-    torch.distributed.destroy_process_group()
+    return {"serve": {r.uid: (r.frames, r.mel) for r in res},
+            "order": [r.uid for r in res],
+            "requeued": len(server.requeued), "train": got,
+            "plain": dict(plain.cuda_calls),
+            "ms": {"serve_batch": t_serve * 1e3,
+                   "stage-1 losses and gradients": t_train * 1e3},
+            "collectives": times, "calls": dict(collectives.calls)}
 
 
-def run_mesh_workers(card: str) -> list[dict]:
-    """``chip_smoke.py --mesh-rank r`` twice on this card, each rank's
-    output kept under ``chiprun_out/``; both killed past
-    ``MESH_TIMEOUT``.  Returns the two ranks' results."""
+def run_ranks(job: str, n: int, timeout: int = MESH_TIMEOUT) -> list[dict]:
+    """``chip_smoke.py --rank-job job --rank r`` for r < n on this card,
+    each rank's output kept in ``chiprun_out/<job>_rank<r>.log``; all
+    killed past ``timeout`` seconds.  Returns the ranks' results (each
+    writes ``<out>/rank<r>.pt``)."""
     out_dir = REPO / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    result = Path(tempfile.mkdtemp(prefix="mesh_"))
+    result = Path(tempfile.mkdtemp(prefix=f"{job}_"))
     port = mesh_lib.free_port()
     procs, logs = [], []
-    for r in range(2):
-        log = open(out_dir / f"mesh_rank{r}.log", "w")
+    for r in range(n):
+        log = open(out_dir / f"{job}_rank{r}.log", "w")
         logs.append(log)
         procs.append(subprocess.Popen(
-            [sys.executable, str(REPO / "chip_smoke.py"), "--mesh-rank",
-             str(r), "--mesh-port", str(port), "--mesh-out", str(result)],
+            [sys.executable, str(REPO / "chip_smoke.py"), "--rank-job", job,
+             "--rank", str(r), "--world", str(n), "--port", str(port),
+             "--out", str(result)],
             cwd=REPO, stdout=log, stderr=subprocess.STDOUT))
-    deadline = time.monotonic() + MESH_TIMEOUT
+    deadline = time.monotonic() + timeout
     try:
         for p in procs:
             p.wait(timeout=max(deadline - time.monotonic(), 1))
     except subprocess.TimeoutExpired:
-        raise AssertionError(f"the two mesh ranks did not finish in "
-                             f"{MESH_TIMEOUT} s")
+        raise AssertionError(f"the {n} {job} ranks did not finish in "
+                             f"{timeout} s")
     finally:
         for p in procs:
             if p.poll() is None:
@@ -3773,11 +3877,12 @@ def run_mesh_workers(card: str) -> list[dict]:
         for log in logs:
             log.close()
     if any(p.returncode for p in procs):
-        tail = (out_dir / "mesh_rank0.log").read_text()[-3000:]
-        raise AssertionError(f"a mesh rank failed (chiprun_out/mesh_rank*"
+        bad = next(r for r, p in enumerate(procs) if p.returncode)
+        tail = (out_dir / f"{job}_rank{bad}.log").read_text()[-3000:]
+        raise AssertionError(f"a {job} rank failed (chiprun_out/{job}_rank*"
                              f".log): {tail}")
     got = [torch.load(result / f"rank{r}.pt", weights_only=False)
-           for r in range(2)]
+           for r in range(n)]
     shutil.rmtree(result, ignore_errors=True)
     return got
 
@@ -3878,7 +3983,7 @@ def phase_mesh(card: str, serve_res: dict) -> dict:
     # two processes on the one card over gloo
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    got, got1 = run_mesh_workers(card)
+    got, got1 = run_ranks("mesh", 2)
     t_workers = time.perf_counter() - t0
     same = ranks_agree(got, got1)
     print(f"  two ranks: rank 1's serve results, losses, gradients, codes "
@@ -3917,6 +4022,212 @@ def phase_mesh(card: str, serve_res: dict) -> dict:
         f"process, batch 2 x {TRAIN_FRAMES}: codes and durations equal;",
         dp2, one, t_one, card)
     return {"serve_mesh": serve_mesh, "train_stage1_dp": train_dp}
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: the model axis
+# ---------------------------------------------------------------------------
+
+def tensor_collective_times(group, cfg: Config) -> dict:
+    """ms per call of the model axis's collectives at the bf16 step's
+    payloads over ``group``: the gather of a Dense's output chunks (16 x
+    1024 x 256 bf16 a rank), the sum of an input gradient (copy_to_model's
+    backward, 16 x 1024 x 512 bf16), the AdaIN block's sum of partial dh
+    (fp32), and the clip's one-number sum."""
+    B, T, C = cfg.train.batch_size, TRAIN_FRAMES, cfg.model.decoder.dim
+    n = torch.distributed.get_world_size(group)
+    y = torch.zeros(B, T, C // n, dtype=torch.bfloat16, device="cuda")
+    dx = torch.zeros(B, T, C, dtype=torch.bfloat16, device="cuda")
+    axis = tensor_lib.ModelAxis(group)
+    one = torch.zeros(1, device="cuda")
+    before = dict(tensor_lib.calls)
+    res = {"gather_features": _time_collective(
+               lambda: tensor_lib._gather(y, 2, group)),
+           "copy_to_model backward": _time_collective(
+               lambda: tensor_lib._sum(dx, group)),
+           "sum_partials (fp32)": _time_collective(lambda: axis.sum(dx)),
+           "clip norm": _time_collective(
+               lambda: torch.distributed.all_reduce(one, group=group))}
+    tensor_lib.calls.clear()
+    tensor_lib.calls.update(before)
+    return res
+
+
+def tensor_worker(rank: int) -> dict:
+    """One of two ranks, (data 1, model 2), on the one card over gloo, at
+    full width: the stage-1 step's fp32 losses and whole gradients at the
+    parity batch, then the bf16 step at batch 16 x 1024 (dropout on) with
+    its ms, launches, the bytes this rank holds, peak memory and the
+    model-axis collectives' calls and ms; the plain versions' check on
+    both ranks after each."""
+    mesh = mesh_lib.make_mesh(1, 2)
+    cfg = train_config()
+    cfg32 = dataclasses.replace(_no_dropout(cfg), runtime=RuntimeConfig(
+        compute_dtype="float32"))
+    tparams = init_params(cfg, seed=0, device="cpu", with_discriminator=True)
+    tparams["acoustic"]["duration_predictor.out.bias"].fill_(DURATION_BIAS)
+    reset_counts()
+    t0 = time.perf_counter()
+    got = train_parity_run(cfg32, tparams, train_batch(cfg, 2, PARITY_SEED),
+                           "cuda", mesh=mesh)
+    torch.cuda.synchronize()
+    t_parity = time.perf_counter() - t0
+    check_no_plain_on_ranks(mesh, f"fp32 tensor-parallel step on rank {rank}")
+    trainer = Stage1Trainer(cfg, tparams, device="cuda", mesh=mesh)
+    state = trainer.init_state(tparams)
+    local_bytes = sharding_lib.estimate_bytes(state.g_params)
+    whole_bytes = sharding_lib.estimate_bytes(
+        {p: tparams[p] for p in G_PARTS})
+    batch = batch_to_device(train_batch(cfg, cfg.train.batch_size, 0),
+                            "cuda", sharding=mesh_lib.batch_sharding(mesh))
+    state, _ = trainer.train_step(state, batch)          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tensor_lib.calls.clear()
+    rt = drive_train(cfg, trainer, state, batch, device="cuda", n_steps=1,
+                     label=f"tensor-parallel stage-1 step on rank {rank}")
+    calls = dict(tensor_lib.calls)
+    peak = torch.cuda.max_memory_allocated()
+    check_no_plain_on_ranks(mesh, f"bf16 tensor-parallel step on rank {rank}")
+    times = tensor_collective_times(trainer.model_group, cfg)
+    return {"train": got, "plain": dict(plain.cuda_calls),
+            "parity_s": t_parity, "step_ms": rt["seconds"] * 1e3,
+            "counts": rt["counts"], "twins": rt["twins"],
+            "losses": rt["losses"], "local_bytes": local_bytes,
+            "whole_bytes": whole_bytes, "peak_bytes": peak, "calls": calls,
+            "collectives_ms": times}
+
+
+def dryrun_worker(rank: int) -> dict:
+    """One of four ranks running ``graft_entry.dryrun_multichip(4)`` on the
+    one card over gloo: its printed line, and the plain versions."""
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        graft_entry.dryrun_multichip(torch.distributed.get_world_size())
+    return {"line": buf.getvalue().strip(), "plain": dict(plain.cuda_calls)}
+
+
+RANK_JOBS = {"mesh": mesh_worker, "tensor": tensor_worker,
+             "dryrun": dryrun_worker}
+
+
+def rank_worker(job: str, rank: int, world: int, port: int,
+                out: Path) -> None:
+    """One rank of ``job``'s group on this card over gloo (NCCL refuses two
+    ranks a card), TF32 off; writes its results to ``out/rank<r>.pt``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh_lib.multihost_init(f"tcp://localhost:{port}", world, rank,
+                            backend="gloo")
+    torch.save(RANK_JOBS[job](rank), out / f"rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+def tensor_ranks_differ(a: dict, b: dict) -> list[str]:
+    """What two model ranks returned differently: the fp32 losses, whole
+    gradients (by name), codes and durations bit for bit, the bf16 step's
+    losses and launches; empty where they agree."""
+    ta, tb = a["train"], b["train"]
+    out = [f"fp32 loss {k}" for k in ta["losses"]
+           if ta["losses"][k] != tb["losses"].get(k)]
+    out += [f"gradient {k}" for k in ta["grads"]
+            if k not in tb["grads"] or not torch.equal(ta["grads"][k],
+                                                       tb["grads"][k])]
+    out += [k for k in ("indices", "durations")
+            if not torch.equal(ta[k], tb[k])]
+    out += [f"bf16 {k}" for k in ("losses", "counts") if a[k] != b[k]]
+    return out
+
+
+def phase_tensor(card: str) -> dict:
+    """(a) Two ranks of this script (data 1, model 2) on this card over
+    gloo at full width: the stage-1 step's fp32 losses and whole gradients
+    at the parity batch against the one-process step, rank 1 against rank
+    0 bit for bit, then the bf16 step at 16 x 1024 (ms, launches as the
+    one-process step's, the bytes a rank holds, peak memory, the model
+    axis's collectives); no plain version on either rank.  (b)
+    ``dryrun_multichip(4)`` as four gloo ranks on the card.  (c)
+    ``graft_entry.entry()`` once, and ``scaling_bench --mesh 1`` at full
+    width over NCCL at world size 1."""
+    cfg = train_config()
+    cfg32 = dataclasses.replace(_no_dropout(cfg), runtime=RuntimeConfig(
+        compute_dtype="float32"))
+    tparams = init_params(cfg, seed=0, device="cpu", with_discriminator=True)
+    tparams["acoustic"]["duration_predictor.out.bias"].fill_(DURATION_BIAS)
+    nb = train_batch(cfg, 2, PARITY_SEED)
+    t0 = time.perf_counter()
+    one = train_parity_run(cfg32, tparams, nb, "cuda")
+    t_one = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    got, got1 = run_ranks("tensor", 2)
+    t_ranks = time.perf_counter() - t0
+    differ = tensor_ranks_differ(got, got1)
+    print(f"  two ranks (data 1, model 2) on this card over gloo "
+          f"({t_ranks:.1f} s with start-up): rank 1's losses, whole "
+          f"gradients, codes, durations, bf16 losses and launches equal to "
+          f"rank 0's: {not differ} {differ[:20]}; plain versions on the "
+          f"card {got['plain']} / {got1['plain']}")
+    if differ or got["plain"] or got1["plain"]:
+        raise AssertionError("the two model ranks disagree, or a plain "
+                             "version ran on the card")
+    tp = got["train"]
+    if not (torch.equal(tp["indices"], one["indices"])
+            and torch.equal(tp["durations"], one["durations"])):
+        raise AssertionError("tensor-parallel stage-1 step: codes or "
+                             "durations differ")
+    gate_losses_and_grads(
+        f"fp32 stage-1 step on (data 1, model 2), gradients gathered whole, "
+        f"vs one process, batch 2 x {TRAIN_FRAMES}: codes and durations "
+        f"equal;", tp, one, t_one, card)
+    expect = train_expected_counts(cfg, TRAIN_FRAMES)
+    print(f"  bf16 stage-1 step on (data 1, model 2), batch "
+          f"{cfg.train.batch_size} x {TRAIN_FRAMES}, dropout on: "
+          f"{got['step_ms']:.1f} / {got1['step_ms']:.1f} ms (rank 0 / 1, one "
+          f"step after a warm-up); generator fp32 tree a rank "
+          f"{got['local_bytes'] / 1e6:.1f} MB against "
+          f"{got['whole_bytes'] / 1e6:.1f} MB in one process; peak memory "
+          f"{got['peak_bytes'] / 1e9:.2f} / {got1['peak_bytes'] / 1e9:.2f} "
+          f"GB; launches per rank per step {got['counts']} (one process: "
+          f"{expect['kernels']}); twin backwards {got['twins']}  [{card}]")
+    print(f"  model-axis collectives per step {got['calls']}; ms per call "
+          f"over gloo "
+          f"{ {k: round(v, 3) for k, v in got['collectives_ms'].items()} }; "
+          f"the fp32 losses and gradients {got['parity_s']:.1f} s  [{card}]")
+
+    t0 = time.perf_counter()
+    dry = run_ranks("dryrun", 4)
+    line = dry[0]["line"]
+    print(f"  dryrun_multichip(4) on four gloo ranks of this card "
+          f"({time.perf_counter() - t0:.1f} s with start-up): {line}; plain "
+          f"versions {[r['plain'] for r in dry]}")
+    if not line.startswith("dryrun_multichip OK: mesh=(2,2)") or \
+            any(r["plain"] for r in dry):
+        raise AssertionError(f"dryrun_multichip(4): {line!r}")
+
+    fn, args = graft_entry.entry()
+    mel, wav = fn(*args)
+    torch.cuda.synchronize()
+    print(f"  graft_entry.entry(): mel {tuple(mel.shape)}, waveform "
+          f"{tuple(wav.shape)}, finite "
+          f"{bool(mel.isfinite().all() and wav.isfinite().all())}")
+    if mel.shape != (2, 256, 80) or not (mel.isfinite().all()
+                                         and wav.isfinite().all()):
+        raise AssertionError("graft_entry.entry(): wrong shape or not finite")
+    del fn, args, mel, wav
+
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        scaling_bench.main(["--mesh", "1"])
+    rows = [json.loads(x) for x in buf.getvalue().splitlines()]
+    print(f"  scaling_bench --mesh 1 (full width, batch 8, NCCL at world "
+          f"size 1): {rows}  [{card}]")
+    if len(rows) != 1 or set(rows[0]) != {"n_devices", "audio_s_per_s",
+                                          "efficiency_vs_linear"} or \
+            not rows[0]["audio_s_per_s"] > 0:
+        raise AssertionError(f"scaling_bench: {rows}")
+    return {"train_stage1_tp": {"counts": got["counts"], "n_calls": 1}}
 
 
 # ---------------------------------------------------------------------------
@@ -4436,14 +4747,17 @@ def main() -> None:
                     help="only run the 1-step, multi-step, long-form and "
                          "serving phases of the tree unpacked at DIR and of "
                          "this one, in turns")
-    ap.add_argument("--mesh-rank", type=int, default=None,
-                    help="run as one of the mesh phase's two ranks (the "
-                         "mesh phase starts them)")
-    ap.add_argument("--mesh-port", type=int, default=None)
-    ap.add_argument("--mesh-out", default=None)
+    ap.add_argument("--rank-job", choices=sorted(RANK_JOBS), default=None,
+                    help="run as one rank of a phase's process group on "
+                         "this card (the mesh and tensor phases start them)")
+    ap.add_argument("--rank", type=int, default=None)
+    ap.add_argument("--world", type=int, default=None)
+    ap.add_argument("--port", type=int, default=None)
+    ap.add_argument("--out", default=None)
     args = ap.parse_args()
-    if args.mesh_rank is not None:
-        mesh_worker(args.mesh_rank, args.mesh_port, Path(args.mesh_out))
+    if args.rank_job is not None:
+        rank_worker(args.rank_job, args.rank, args.world, args.port,
+                    Path(args.out))
         return
     with phase("device"):
         card = phase_device()
@@ -4505,6 +4819,8 @@ def main() -> None:
     with phase("mesh"):
         mesh_res = phase_mesh(card, {"server": server, "reqs": reqs})
         del server
+    with phase("tensor"):
+        mesh_res.update(phase_tensor(card))
     with phase("verify"):
         verify = phase_verify(card)
     with phase("acceptance"):

@@ -27,6 +27,9 @@
 //    channels of one batch row, so each frame's modulation is computed by
 //    two blocks (C_out 512), not by each of four.  Each warpgroup owns 64
 //    frames: wgmma.m64n256k16 with 128 fp32 accumulators a thread.  The
+//    A tensor-parallel chunk of 128 output channels (C_out % 256 != 0)
+//    takes the same kernel with a block of 128 channels on
+//    wgmma.m64n128k16 (64 accumulators a thread).  The
 //    input channels are walked in stages of 16 (one k-step), in a ring of
 //    four stages on mbarriers, requested by TMA two stages ahead: the
 //    weight's K taps (128-byte swizzle, MN-major: o is contiguous in the
@@ -96,8 +99,6 @@ union Vec8 {
 };
 
 constexpr int kBM = 128;                  // frames a block: 64 a warpgroup (M)
-constexpr int kBN = 256;                  // output channels a block (N)
-constexpr int kNB = kBN / 64;             // the weight's 64-channel boxes
 constexpr int kCK = 16;                   // input channels a stage: a k-step
 constexpr int kK = 5;                     // taps (the decoder's K)
 constexpr int kMaxHalo = 18;              // K 5 at dilation 9
@@ -106,24 +107,34 @@ constexpr int kStages = 4;
 constexpr int kLookahead = 2;             // chunks requested ahead of use
 constexpr int kThreads = 256;             // two warpgroups
 constexpr int kWTapBytes = kCK * 128;     // one tap of one 64-channel box
-constexpr int kWBytes = kNB * kK * kWTapBytes;
 constexpr int kColBytes = kRows * 16;     // 8 channels of every window row
 constexpr int kTileBytes = 2 * kColBytes; // x, scale or shift of a stage
-constexpr int kStatsOffset = kWBytes + 3 * kTileBytes;   // the stage's tail:
 constexpr int kStatsBytes = 2 * kCK * 4 + 2 * kCK * 2;   // mean, rstd (fp32)
                                                           // and global style
-constexpr int kStageBytes =
-    (kStatsOffset + kStatsBytes + 1023) / 1024 * 1024;
-constexpr int kBarOffset = kStages * kStageBytes;
-constexpr int kSmem = 1024 + kBarOffset + 8 * kStages;
 static_assert(kRows >= kBM + 2 * kMaxHalo && kRows % 8 == 0, "window rows");
-static_assert(kSmem <= 232448, "fits the 227 KB a block may use");
 static_assert(kStages >= kLookahead + 2, "a stage is reloaded two chunks "
               "after its products were issued");
 
+// The layout for kBN output channels a block (N): 256 (wgmma.m64n256k16)
+// wherever C_out % 256 == 0, else 128 (m64n128k16: a tensor-parallel chunk
+// of 128 channels), with the same stages, ring and window.
+template <int kBN>
+struct Tile {
+  static constexpr int kNB = kBN / 64;    // the weight's 64-channel boxes
+  static constexpr int kWBytes = kNB * kK * kWTapBytes;
+  static constexpr int kStatsOffset = kWBytes + 3 * kTileBytes;  // the tail
+  static constexpr int kStageBytes =
+      (kStatsOffset + kStatsBytes + 1023) / 1024 * 1024;
+  static constexpr int kBarOffset = kStages * kStageBytes;
+  static constexpr int kSmem = 1024 + kBarOffset + 8 * kStages;
+  static_assert(kBN == 128 || kBN == 256, "a wgmma N of 128 or 256");
+  static_assert(kSmem <= 232448, "fits the 227 KB a block may use");
+};
+
 // Stage s of the ring (1024-byte aligned, the weight's swizzle atom):
-//   [0, kWBytes)   w[k, c0 .. c0 + 15, n0 .. n0 + 255]: kNB boxes of K taps x
-//                  16 rows x 64 channels (128 bytes, 128-byte swizzle), box
+//   [0, kWBytes)   w[k, c0 .. c0 + 15, n0 .. n0 + kBN - 1]: kNB boxes of K
+//                  taps x 16 rows x 64 channels (128 bytes, 128-byte
+//                  swizzle), box
 //                  nb at nb K kWTapBytes, tap k at k kWTapBytes within it;
 //   then x, scale and shift (the last two with time-varying style only),
 //   each two columns of kRows 16-byte rows: channels c0 .. c0 + 7 of window
@@ -132,7 +143,7 @@ static_assert(kStages >= kLookahead + 2, "a stage is reloaded two chunks "
 //   their scale and shift (bf16), by bulk copies.
 // x's tile is modulated in place into h, wgmma's A: K-major, no swizzle,
 // rows 16 bytes apart, so a tap's shift k d is a start k d rows further.
-template <bool kTimeVarying>
+template <int kBN, bool kTimeVarying>
 __global__ void __launch_bounds__(kThreads, 1)
 adain_conv_sm90_kernel(const __grid_constant__ CUtensorMap tm_w,
                        const __grid_constant__ CUtensorMap tm_x,
@@ -144,11 +155,14 @@ adain_conv_sm90_kernel(const __grid_constant__ CUtensorMap tm_w,
                        const float* __restrict__ rstd,
                        __nv_bfloat16* __restrict__ out, int T, int C,
                        int C_out, int dil, long long s_sb, long long h_sb) {
+  using L = Tile<kBN>;
+  constexpr int kNB = L::kNB, kWBytes = L::kWBytes;
+  constexpr int kStatsOffset = L::kStatsOffset;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   unsigned char* smem = smem_raw + (base - raw);
-  const uint32_t full0 = base + kBarOffset;
+  const uint32_t full0 = base + L::kBarOffset;
 
   const int halo = (kK - 1) * dil / 2;
   const int rows = kBM + 2 * halo;
@@ -162,7 +176,7 @@ adain_conv_sm90_kernel(const __grid_constant__ CUtensorMap tm_w,
                             (kTimeVarying ? 3 : 1) * 2 * rows * 16 +
                             (kTimeVarying ? 2 * kCK * 4 : kStatsBytes);
 
-  auto stage = [&](int s) { return base + s * kStageBytes; };
+  auto stage = [&](int s) { return base + s * L::kStageBytes; };
   // which: 0 x (then h), 1 scale, 2 shift
   auto tile = [&](int s, int which) {
     return stage(s) + kWBytes + which * kTileBytes;
@@ -248,14 +262,14 @@ adain_conv_sm90_kernel(const __grid_constant__ CUtensorMap tm_w,
 
   // acc[4j + 2r + e]: frame t0 + 64 wg + 16 warp + lane/4 + 8r, output
   // channel n0 + 8j + 2(lane%4) + e; defined by the first product
-  float acc[128];
+  float acc[kBN / 2];
 
   // Chunk i: modulate its window (while chunk i - 1's products run), then
-  // issue its kK tap products, one m64n256k16 each, and retire chunk i -
-  // 1's.  The block barrier after the modulation also tells the loading
-  // thread (in the second warpgroup, so the first issues its products
-  // undelayed) that both warpgroups retired chunk i - 2, whose stage then
-  // takes chunk i + 2.  Nothing but wgmma touches the accumulators in the
+  // issue its kK tap products, one m64n256k16 (m64n128k16) each, and
+  // retire chunk i - 1's.  The block barrier after the modulation also
+  // tells the loading thread (in the second warpgroup, so the first issues
+  // its products undelayed) that both warpgroups retired chunk i - 2, whose
+  // stage then takes chunk i + 2.  Nothing but wgmma touches the accumulators in the
   // loop (ptxas would serialise the products otherwise).
   for (int i = 0; i < n_chunks; ++i) {
     const int s = i % kStages;
@@ -264,13 +278,16 @@ adain_conv_sm90_kernel(const __grid_constant__ CUtensorMap tm_w,
     named_barrier_sync(1, kThreads);
     wgmma_fence();
 #pragma unroll
-    for (int k = 0; k < kK; ++k)
-      wgmma_n256_kmn(acc,
-                     smem_desc(tile(s, 0) + (64 * wg + k * dil) * 16,
-                               kColBytes, 128, 0),
-                     smem_desc(stage(s) + k * kWTapBytes, kWBytes / kNB,
-                               1024, 1),
-                     i > 0 || k > 0);
+    for (int k = 0; k < kK; ++k) {
+      const uint64_t da = smem_desc(tile(s, 0) + (64 * wg + k * dil) * 16,
+                                    kColBytes, 128, 0);
+      const uint64_t db = smem_desc(stage(s) + k * kWTapBytes,
+                                    kWBytes / kNB, 1024, 1);
+      if constexpr (kBN == 256)
+        wgmma_n256_kmn(acc, da, db, i > 0 || k > 0);
+      else
+        wgmma_n128_kmn(acc, da, db, i > 0 || k > 0);
+    }
     wgmma_commit();
     if (tid == kThreads - 128 && i + kLookahead < n_chunks)
       load((i + kLookahead) % kStages, i + kLookahead);
@@ -290,7 +307,7 @@ adain_conv_sm90_kernel(const __grid_constant__ CUtensorMap tm_w,
     uint32_t* row = reinterpret_cast<uint32_t*>(
         ob + static_cast<long long>(t) * C_out);
 #pragma unroll
-    for (int j = 0; j < 32; ++j)
+    for (int j = 0; j < kBN / 8; ++j)
       row[4 * j] = pack_bf16(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
   }
 }
@@ -298,9 +315,10 @@ adain_conv_sm90_kernel(const __grid_constant__ CUtensorMap tm_w,
 // The tensor maps: w (K, C, C_out) contiguous in 64 x 16 x K boxes with
 // 128-byte swizzle; x and a time-varying scale/shift (B, T, C) with element
 // strides (b, t) and contiguous channels in unswizzled 8-channel x rows
-// boxes.  A dimension of extent 1 gets a dense stride.  Returns a
-// cudaError_t.
-int launch_bf16(const void* x, const void* scale, const void* shift,
+// boxes.  A dimension of extent 1 gets a dense stride.  A block owns 256
+// output channels where C_out % 256 == 0, else 128.  Returns a cudaError_t.
+template <int kBN>
+int launch_bf16_tile(const void* x, const void* scale, const void* shift,
                 const float* mean, const float* rstd, const void* w,
                 void* out, int B, int T, int C, int C_out, int K, int dil,
                 long long x_sb, long long x_st, long long s_sb,
@@ -345,8 +363,9 @@ int launch_bf16(const void* x, const void* scale, const void* shift,
   else
     tm_sc = tm_sh = tm_x;   // unused: global style is read by the threads
   if (!ok) return (int)cudaErrorInvalidValue;
-  auto* kernel = time_varying ? adain_conv_sm90_kernel<true>
-                              : adain_conv_sm90_kernel<false>;
+  auto* kernel = time_varying ? adain_conv_sm90_kernel<kBN, true>
+                              : adain_conv_sm90_kernel<kBN, false>;
+  constexpr int kSmem = Tile<kBN>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return (int)err;
@@ -356,6 +375,18 @@ int launch_bf16(const void* x, const void* scale, const void* shift,
       static_cast<const __nv_bfloat16*>(shift), mean, rstd,
       static_cast<__nv_bfloat16*>(out), T, C, C_out, dil, s_sb, h_sb);
   return (int)cudaGetLastError();
+}
+
+int launch_bf16(const void* x, const void* scale, const void* shift,
+                const float* mean, const float* rstd, const void* w,
+                void* out, int B, int T, int C, int C_out, int K, int dil,
+                long long x_sb, long long x_st, long long s_sb,
+                long long s_st, long long h_sb, long long h_st,
+                cudaStream_t stream) {
+  auto* launch = C_out % 256 == 0 ? launch_bf16_tile<256>
+                                  : launch_bf16_tile<128>;
+  return launch(x, scale, shift, mean, rstd, w, out, B, T, C, C_out, K, dil,
+                x_sb, x_st, s_sb, s_st, h_sb, h_st, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -459,7 +490,7 @@ adain_conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ sc,
 // has a t stride of 0.  mean and rstd are contiguous (B, C) fp32, w is
 // contiguous (K, C, C_out) in x's dtype, out contiguous (B, T, C_out).
 // K is odd and (K-1)*dilation even (a symmetric halo).  bf16 needs K 5,
-// a halo of at most 18 frames, C % 16 == 0, C_out % 256 == 0, 16-byte
+// a halo of at most 18 frames, C % 16 == 0, C_out % 128 == 0, 16-byte
 // aligned pointers and strides in multiples of 8, and scale and shift both
 // time-varying or both global (the wrapper checks).  Returns a cudaError_t
 // (0 on success).
@@ -500,11 +531,12 @@ extern "C" int adain_conv_fwd(int dtype, const void* x, const void* scale,
 // Returns a cudaError_t.
 extern "C" int adain_conv_fwd_occupancy(int* blocks_per_sm,
                                         int* smem_bytes) {
+  constexpr int kSmem = Tile<256>::kSmem;
   *smem_bytes = kSmem;
   cudaError_t err = cudaFuncSetAttribute(
-      adain_conv_sm90_kernel<true>,
+      adain_conv_sm90_kernel<256, true>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, adain_conv_sm90_kernel<true>, kThreads, kSmem);
+      blocks_per_sm, adain_conv_sm90_kernel<256, true>, kThreads, kSmem);
 }

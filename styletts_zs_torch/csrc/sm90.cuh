@@ -9,7 +9,7 @@
 // driver's tensor-map encoder found through the runtime (so the library
 // links without -lcuda), the products (m64n64k16 for the attention kernels,
 // m64n64k8 in TF32 for row 2's fp32 variant and m64n{16,32,48,64}k8 for row
-// 11, m64n256k16 for rows 6 and 7,
+// 11, m64n256k16 for rows 6 and 7, m64n128k16 for row 6 on 128 channels,
 // m64n80k16 for row 12), the TF32 split, and the attention kernels'
 // (B, T, H, 64) tile maps (bf16 and fp32) and exp2.
 
@@ -393,6 +393,41 @@ __device__ __forceinline__ void wgmma_n256_kmn(float (&d)[128], uint64_t da,
 __device__ __forceinline__ void wgmma_n256_kk(float (&d)[128], uint64_t da,
                                              uint64_t db, int accumulate) {
   wgmma_n256<0>(d, da, db, accumulate);
+}
+
+// d (+)= A B, m64n128k16: A K-major, B MN-major (the transpose bit), both
+// in shared memory; 64 fp32 accumulators a thread.  Row 6 on a block of
+// 128 output channels (a tensor-parallel chunk of the decoder's 512).  With
+// accumulate 0 the product defines d, as for wgmma_n256.
+__device__ __forceinline__ void wgmma_n128_kmn(float (&d)[64], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 // d += A B, m64n80k16: A and B K-major in shared memory; 40 fp32

@@ -30,6 +30,15 @@ weight gradient is K fp32 products of the SiLU output with dc
 ``torch.autograd.Function``: row 6's two passes forward, saving
 (x, scale, shift, k1, k2, h, mean_x, rstd_x, mean_h, rstd_h), and that
 backward, as ``adain_conv_block_fwd_pallas``/``_bwd_pallas`` pair them.
+
+Tensor parallelism (``model``, a ``parallel.tensor.ModelAxis``): the
+kernels hold this rank's chunk of the output channels.  Each pass then
+gives this rank's channels of h and of h2, gathered before what reads them
+whole (pass 2's statistics, the residual).  Backward, row 7 takes this
+rank's channels of dc and gives a partial dh over all input channels,
+which is summed over the model ranks before the norm's backward; the
+weight gradients are this rank's chunks, the input and style gradients
+whole and equal on every rank.
 """
 from __future__ import annotations
 
@@ -116,11 +125,13 @@ def _check_pass(x, scale, shift, mean, rstd, w, dilation: int) -> None:
 
 
 # The bf16 kernel (``adain_conv_sm90_kernel``): a block owns SM90_FRAMES
-# frames x SM90_CHANNELS output channels of one batch row and walks the
-# input channels SM90_CK at a time over a window of SM90_FRAMES + 2 halo
-# frames, for the decoder's SM90_K taps and a halo of at most SM90_MAX_HALO
-# frames.
-SM90_FRAMES, SM90_CHANNELS, SM90_CK = 128, 256, 16
+# frames x SM90_CHANNELS output channels of one batch row (SM90_NARROW
+# where C_out is not a multiple of SM90_CHANNELS: a tensor-parallel shard
+# of 128) and walks the input channels SM90_CK at a time over a window of
+# SM90_FRAMES + 2 halo frames, for the decoder's SM90_K taps and a halo of
+# at most SM90_MAX_HALO frames.  Row 7's kernel owns SM90_CHANNELS input
+# channels a block.
+SM90_FRAMES, SM90_CHANNELS, SM90_NARROW, SM90_CK = 128, 256, 128, 16
 SM90_K, SM90_MAX_HALO = 5, 18
 
 
@@ -132,15 +143,20 @@ def frame_tiles(T: int, K: int, dilation: int) -> list[tuple[int, int, int]]:
             for t0 in range(0, T, SM90_FRAMES)]
 
 
+def sm90_tile(C_out: int) -> int:
+    """The output channels a block of the bf16 kernel owns at C_out."""
+    return SM90_CHANNELS if C_out % SM90_CHANNELS == 0 else SM90_NARROW
+
+
 def _check_sm90(scale, shift, w, dilation: int) -> None:
     """Raise on a bf16 pass the kernel does not take."""
     K, C, C_out = w.shape
     if K != SM90_K or (K - 1) * dilation // 2 > SM90_MAX_HALO or \
-            C % SM90_CK or C_out % SM90_CHANNELS or scale.ndim != shift.ndim:
+            C % SM90_CK or C_out % SM90_NARROW or scale.ndim != shift.ndim:
         raise ValueError(
             f"bf16 needs K {SM90_K}, a halo of at most "
             f"{SM90_MAX_HALO} frames, C % {SM90_CK} == 0, C_out % "
-            f"{SM90_CHANNELS} == 0 and scale, shift both per-frame or both "
+            f"{SM90_NARROW} == 0 and scale, shift both per-frame or both "
             f"global; got w {tuple(w.shape)}, dilation {dilation}, "
             f"scale {tuple(scale.shape)}, shift {tuple(shift.shape)}")
 
@@ -198,27 +214,31 @@ def adain_conv_pass_cuda(x, scale, shift, mean, rstd, w, *,
 
 
 def _block_forward(x, scale, shift, kernel1, kernel2, *, dilation: int,
-                   conv_pass):
-    """(y, residuals): the block and what its backward needs."""
+                   conv_pass, model=None):
+    """(y, residuals): the block and what its backward needs; with
+    ``model``, each pass's channel slices gathered."""
     C = x.shape[-1]
+    whole = (lambda y: y) if model is None else model.gather
     mean_x, rstd_x = instance_stats(x)
-    h = conv_pass(x, scale[..., :C], shift[..., :C], mean_x, rstd_x, kernel1,
-                  dilation=dilation)
+    h = whole(conv_pass(x, scale[..., :C], shift[..., :C], mean_x, rstd_x,
+                        kernel1, dilation=dilation))
     mean_h, rstd_h = instance_stats(h)
-    h2 = conv_pass(h, scale[..., C:], shift[..., C:], mean_h, rstd_h, kernel2,
-                   dilation=1)
+    h2 = whole(conv_pass(h, scale[..., C:], shift[..., C:], mean_h, rstd_h,
+                         kernel2, dilation=1))
     y = ((x.float() + h2.float()) * np.float32(1.0 / np.sqrt(2.0))).to(x.dtype)
     return y, (x, scale, shift, kernel1, kernel2, h, mean_x, rstd_x, mean_h,
                rstd_h)
 
 
 def adain_conv_block(x, scale, shift, kernel1, kernel2, *, dilation: int,
-                     conv_pass) -> torch.Tensor:
+                     conv_pass, model=None) -> torch.Tensor:
     """(x + pass2(pass1(x))) / sqrt(2); ``conv_pass`` is the kernel's
     wrapper or its plain version.  scale/shift are (B, T, 2C) or (B, 2C):
-    channels [0, C) for pass 1, [C, 2C) for pass 2, taken as views."""
+    channels [0, C) for pass 1, [C, 2C) for pass 2, taken as views.
+    ``model``: the kernels are this rank's output chunks."""
     return _block_forward(x, scale, shift, kernel1, kernel2,
-                          dilation=dilation, conv_pass=conv_pass)[0]
+                          dilation=dilation, conv_pass=conv_pass,
+                          model=model)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -326,15 +346,17 @@ class AdaINConvBlock(torch.autograd.Function):
     ``bwd_data`` are row 6's and row 7's wrappers, or their plain versions
     (the caller picks by device).  The weight gradients are computed only
     where a kernel requires grad (a frozen decoder, as stage 3 backpropagates
-    through, wants the input and style gradients alone)."""
+    through, wants the input and style gradients alone).  ``model``: the
+    kernels are this rank's output chunks (see the module's docstring)."""
 
     @staticmethod
     def forward(ctx, x, scale, shift, kernel1, kernel2, dilation, conv_pass,
-                bwd_data):
+                bwd_data, model=None):
         y, res = _block_forward(x, scale, shift, kernel1, kernel2,
-                                dilation=dilation, conv_pass=conv_pass)
+                                dilation=dilation, conv_pass=conv_pass,
+                                model=model)
         ctx.save_for_backward(*res)
-        ctx.dilation, ctx.bwd_data = dilation, bwd_data
+        ctx.dilation, ctx.bwd_data, ctx.model = dilation, bwd_data, model
         return y
 
     @staticmethod
@@ -346,16 +368,22 @@ class AdaINConvBlock(torch.autograd.Function):
         s1, s2 = scale[..., :C], scale[..., C:]
         b1, b2 = shift[..., :C], shift[..., C:]
         inv_sqrt2 = np.float32(1.0 / np.sqrt(2.0))
-        dc2 = (g.float() * inv_sqrt2).to(g.dtype)
+        model = ctx.model
+        # this rank's output channels of a whole cotangent, and the sum of
+        # the ranks' partial input gradients
+        mine = (lambda d: d) if model is None else model.slice
+        summed = (lambda d: d) if model is None else model.sum
+        dc2 = mine((g.float() * inv_sqrt2).to(g.dtype))
         # pass 2 (dilation 1): dh2 -> dc1, ds2, db2, dW2
-        dh2 = ctx.bwd_data(dc2, h, s2, b2, mean_h, rstd_h, k2, dilation=1)
+        dh2 = summed(ctx.bwd_data(dc2, h, s2, b2, mean_h, rstd_h, k2,
+                                  dilation=1))
         dc1_f, ds2, db2, n_h = _norm_bwd(dh2, h, s2, mean_h, rstd_h)
-        dc1 = dc1_f.to(g.dtype)
+        dc1 = mine(dc1_f.to(g.dtype))
         dW2 = (_conv_wgrad(_silu_act(n_h, s2, b2), dc2, k2.shape[0], 1)
                .to(k2.dtype) if need_w2 else None)
         # pass 1 (dilated): dh1 -> dx, ds1, db1, dW1
-        dh1 = ctx.bwd_data(dc1, x, s1, b1, mean_x, rstd_x, k1,
-                           dilation=ctx.dilation)
+        dh1 = summed(ctx.bwd_data(dc1, x, s1, b1, mean_x, rstd_x, k1,
+                                  dilation=ctx.dilation))
         dx_n, ds1, db1, n_x = _norm_bwd(dh1, x, s1, mean_x, rstd_x)
         dW1 = (_conv_wgrad(_silu_act(n_x, s1, b1), dc1, k1.shape[0],
                            ctx.dilation).to(k1.dtype) if need_w1 else None)
@@ -364,4 +392,4 @@ class AdaINConvBlock(torch.autograd.Function):
                   .to(scale.dtype) if need_s else None)
         dshift = (_sum_global(torch.cat([db1, db2], dim=-1), shift)
                   .to(shift.dtype) if need_b else None)
-        return dx, dscale, dshift, dW1, dW2, None, None, None
+        return dx, dscale, dshift, dW1, dW2, None, None, None, None

@@ -132,10 +132,13 @@ def fused_heun_correction(x, x_euler, den2_cond, den2_uncond, d_cur, s_cur,
         guidance=guidance)
 
 
-def adain_conv_block(x, scale, shift, kernel1, kernel2, *, dilation: int = 1):
+def adain_conv_block(x, scale, shift, kernel1, kernel2, *, dilation: int = 1,
+                     model=None):
     """AdaIN -> SiLU -> dilated conv, twice, with a (x + h)/sqrt(2) residual
     (``ac_kernel.adain_conv_block``); kernels in the JAX (K, C_in, C_out)
-    layout, scale/shift (B, T, 2C) or (B, 2C), views taken as they are."""
+    layout, scale/shift (B, T, 2C) or (B, 2C), views taken as they are.
+    ``model`` (a ``parallel.tensor.ModelAxis``): the kernels hold this
+    rank's chunk of the output channels."""
     conv_pass = _route("adain_conv", x, ac_kernel.adain_conv_pass_cuda,
                        ac_kernel.adain_conv_pass_plain)
     if _needs_grad(x, scale, shift, kernel1, kernel2):
@@ -143,9 +146,10 @@ def adain_conv_block(x, scale, shift, kernel1, kernel2, *, dilation: int = 1):
             x, scale, shift, kernel1, kernel2, dilation, conv_pass,
             _route("adain_conv_bwd_data", x,
                    ac_kernel.adain_conv_bwd_data_cuda,
-                   ac_kernel.adain_conv_bwd_data_plain))
+                   ac_kernel.adain_conv_bwd_data_plain), model)
     return ac_kernel.adain_conv_block(x, scale, shift, kernel1, kernel2,
-                                      dilation=dilation, conv_pass=conv_pass)
+                                      dilation=dilation, conv_pass=conv_pass,
+                                      model=model)
 
 
 def conv_transpose1d(x, kernel, *, stride: int,

@@ -24,6 +24,7 @@ from styletts_zs_torch.kernels import dispatch
 from styletts_zs_torch.models.layers import (MLP, AdaLNTransformerBlock, Dense,
                                              LayerNorm, position_table,
                                              sinusoidal_embedding)
+from styletts_zs_torch.parallel import tensor as tp
 
 
 def karras_sigmas(cfg: DiffusionConfig, n_steps: int) -> np.ndarray:
@@ -98,8 +99,8 @@ class StyleDiffusion(nn.Module):
         as JAX casts it (training-time CFG dropout and the uncond branch)."""
         B, P, C = prompt_tokens.shape
         if drop_prompt is not None:
-            null_tok = self.null_prompt_tokens.to(prompt_tokens.dtype)[None] \
-                .expand(B, P, C)
+            null_tok = tp.whole_param(self, "null_prompt_tokens").to(
+                prompt_tokens.dtype)[None].expand(B, P, C)
             prompt_tokens = torch.where(drop_prompt[:, None, None], null_tok,
                                         prompt_tokens)
         ctx = torch.cat([text_enc, prompt_tokens], dim=1)

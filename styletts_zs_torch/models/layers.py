@@ -10,6 +10,13 @@ statistics in fp32 with eps 1e-6 (Flax's default); GELU is the tanh form
 its Bernoulli masks from an explicit ``torch.Generator`` handed down the
 forward calls (``rng``, JAX's ``deterministic=False`` with a dropout key);
 with ``rng=None`` it is the identity, as at inference.
+
+Tensor parallelism: a Dense or Conv weight, an embedding table or an AdaIN
+block's kernels may hold only this rank's chunk of their output channels
+(``parallel.tensor.shard_modules``); the layer then computes its output
+slice and gathers the slices over the model ranks, and adds the bias,
+which stays whole, after the gather.  A layer whose weight is whole runs
+as it always has.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ from torch import nn
 from styletts_zs_torch.kernels import dispatch
 from styletts_zs_torch.ops import conv as conv_ops
 from styletts_zs_torch.ops import norm as norm_ops
+from styletts_zs_torch.parallel import tensor as tp
 
 
 def dropout(x: torch.Tensor, rate: float,
@@ -60,7 +68,22 @@ class Dense(nn.Linear):
     """``nn.Dense``: the input is cast to the weight's dtype."""
 
     def forward(self, x):
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        x = x.to(self.weight.dtype)
+        s = tp.shard_of(self, "weight")
+        if s is None:
+            return F.linear(x, self.weight, self.bias)
+        y = F.linear(tp.copy_to_model(x, s.group), self.weight)
+        return tp.gather_features(y, -1, s.group) + self.bias
+
+
+class Embed(nn.Embedding):
+    """``nn.Embed``: a table lookup (a sharded table looks up its feature
+    chunk, then gathers)."""
+
+    def forward(self, ids):
+        y = F.embedding(ids, self.weight)
+        s = tp.shard_of(self, "weight")
+        return y if s is None else tp.gather_features(y, -1, s.group)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -88,9 +111,16 @@ class Conv(nn.Module):
         self.dilation, self.stride = dilation, stride
 
     def forward(self, x):
-        return conv_ops.conv1d_torch_weight(
-            x.to(self.weight.dtype), self.weight, self.bias,
-            dilation=self.dilation, stride=self.stride)
+        x = x.to(self.weight.dtype)
+        s = tp.shard_of(self, "weight")
+        if s is None:
+            return conv_ops.conv1d_torch_weight(
+                x, self.weight, self.bias, dilation=self.dilation,
+                stride=self.stride)
+        y = conv_ops.conv1d_torch_weight(
+            tp.copy_to_model(x, s.group), self.weight, dilation=self.dilation,
+            stride=self.stride)
+        return tp.gather_features(y, -1, s.group) + self.bias.to(x.dtype)
 
 
 class MLP(nn.Module):
@@ -224,4 +254,5 @@ class AdaINResBlock(nn.Module):
         scale, shift = self.style_mod(F.silu(style)).split(2 * self.dim,
                                                           dim=-1)
         return dispatch.adain_conv_block(x, scale, shift, self.conv1,
-                                         self.conv2, dilation=self.dilation)
+                                         self.conv2, dilation=self.dilation,
+                                         model=tp.model_axis(self, "conv1"))

@@ -15,6 +15,7 @@ from styletts_zs_torch.config import PromptEncoderConfig, StyleConfig
 from styletts_zs_torch.models.layers import (CrossAttention, Dense, LayerNorm,
                                              TransformerBlock, position_table)
 from styletts_zs_torch.ops import fsq
+from styletts_zs_torch.parallel import tensor as tp
 
 
 class StyleExtractor(nn.Module):
@@ -41,7 +42,8 @@ class StyleExtractor(nn.Module):
         h = h + position_table(mel.shape[1], c.extractor_dim, h)
         for i in range(c.extractor_layers):
             h = getattr(self, f"enc{i}")(h, mask=mask)
-        q = self.queries.to(h.dtype)[None].expand(mel.shape[0], -1, -1)
+        q = tp.whole_param(self, "queries").to(h.dtype)[None].expand(
+            mel.shape[0], -1, -1)
         q = q + self.pool0(self.LayerNorm_0(q), h, ctx_mask=mask)
         q = q + self.pool1(self.LayerNorm_1(q), h, ctx_mask=mask)
         return self.style_out(self.LayerNorm_2(q))
@@ -124,7 +126,8 @@ class PromptEncoder(nn.Module):
         h = h + position_table(ref_mel.shape[1], c.dim, h)
         for i in range(c.n_layers):
             h = getattr(self, f"enc{i}")(h, mask=mask)
-        q = self.queries.to(h.dtype)[None].expand(ref_mel.shape[0], -1, -1)
+        q = tp.whole_param(self, "queries").to(h.dtype)[None].expand(
+            ref_mel.shape[0], -1, -1)
         q = q + self.pool(q, h, ctx_mask=mask)
         tokens = self.LayerNorm_0(q)
         return tokens, tokens.mean(dim=1)

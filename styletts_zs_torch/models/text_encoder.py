@@ -8,8 +8,9 @@ from __future__ import annotations
 from torch import nn
 
 from styletts_zs_torch.config import ProsodyEncoderConfig, TextEncoderConfig
-from styletts_zs_torch.models.layers import (ConvBlock, Dense, LayerNorm,
-                                             TransformerBlock, position_table)
+from styletts_zs_torch.models.layers import (ConvBlock, Dense, Embed,
+                                             LayerNorm, TransformerBlock,
+                                             position_table)
 
 
 def _masked(x, mask):
@@ -22,7 +23,7 @@ class TextEncoder(nn.Module):
     def __init__(self, cfg: TextEncoderConfig):
         super().__init__()
         self.cfg = cfg
-        self.phoneme_embed = nn.Embedding(cfg.vocab_size, cfg.dim)
+        self.phoneme_embed = Embed(cfg.vocab_size, cfg.dim)
         for i in range(cfg.n_conv_layers):
             self.add_module(f"conv{i}", ConvBlock(
                 cfg.dim, cfg.dim, cfg.conv_kernel, dropout=cfg.dropout))
@@ -50,7 +51,7 @@ class ProsodyTextEncoder(nn.Module):
                  text_dim: int = 512):
         super().__init__()
         self.cfg = cfg
-        self.prosody_embed = nn.Embedding(vocab_size, cfg.dim)
+        self.prosody_embed = Embed(vocab_size, cfg.dim)
         self.text_proj = Dense(text_dim, cfg.dim)
         for i in range(cfg.n_layers):
             self.add_module(f"block{i}", TransformerBlock(

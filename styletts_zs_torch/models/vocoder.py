@@ -8,6 +8,9 @@ dilated resblocks; the head (leaky ReLU, K=7 conv, magnitude/phase
 epilogue, iSTFT overlap-add) is one call of ``dispatch.synthesis_head`` —
 the hand-written head kernel on the card.
 ``up{i}_kernel`` and ``istft_head.{kernel,bias}`` keep the JAX layouts.
+An ``up{i}_kernel`` split over the model ranks (``parallel/sharding.py``)
+gives this rank's output channels, gathered in the kernel's (B, C, T)
+layout.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from torch import nn
 from styletts_zs_torch.config import VocoderConfig
 from styletts_zs_torch.kernels import dispatch
 from styletts_zs_torch.models.layers import Conv
+from styletts_zs_torch.parallel import tensor as tp
 
 HEAD_KERNEL = 7
 
@@ -71,8 +75,7 @@ class Vocoder(nn.Module):
         for i, rate in enumerate(c.upsample_rates):
             # the leaky ReLU runs inside the kernel's load, which reads the
             # resblocks' (B, C, T)-major output in place
-            x = dispatch.conv_transpose1d(x, getattr(self, f"up{i}_kernel"),
-                                          stride=rate, negative_slope=0.1)
+            x = self._upsample(i, x, rate)
             acc = None
             for j in range(len(c.resblock_kernels)):
                 h = getattr(self, f"mrf{i}_{j}")(x)
@@ -82,3 +85,18 @@ class Vocoder(nn.Module):
                                       self.istft_head.bias,
                                       n_fft=c.istft_n_fft, hop=c.istft_hop)
         return wav.to(self.conv_in.weight.dtype)
+
+    def _upsample(self, i: int, x, rate: int):
+        """Stage i's transposed conv; with a sharded kernel, this rank's
+        output channels, gathered along C of the (B, C, T) memory the
+        kernel writes, so the result has the layout of a whole kernel's."""
+        leaf = f"up{i}_kernel"
+        s = tp.shard_of(self, leaf)
+        if s is None:
+            return dispatch.conv_transpose1d(x, getattr(self, leaf),
+                                             stride=rate, negative_slope=0.1)
+        y = dispatch.conv_transpose1d(tp.copy_to_model(x, s.group),
+                                      getattr(self, leaf), stride=rate,
+                                      negative_slope=0.1)
+        return tp.gather_features(y.transpose(1, 2), 1,
+                                  s.group).transpose(1, 2)

@@ -3,13 +3,17 @@ place of JAX's named mesh.
 
 Counterpart of ``styletts_zs_tpu/parallel/mesh.py``.  Axes: ``data``
 (utterance batches: each rank holds a contiguous slice of every batch) and
-``model`` (tensor parallelism; only size 1 is ported, every rank holds the
-whole model).  One rank is one process on one device; ``make_mesh`` lays
-the world's ranks out as a ``DeviceMesh`` of shape (data, model) with those
-dimension names.  The placements ``batch_sharding`` and ``replicated`` are
-what ``pipelines.train.batch_to_device`` and ``pipelines.serve.Server``
-take: JAX's ``NamedSharding`` of a batch over ``data``, and of a replicated
-tree.
+``model`` (tensor parallelism: the ranks of one model group hold the same
+rows and each its shard of the large weights, ``parallel/sharding.py``).
+One rank is one process on one device; ``make_mesh`` lays the world's ranks
+out as a ``DeviceMesh`` of shape (data, model) with those dimension names,
+row-major as JAX's ``make_mesh`` orders its devices: rank ``d * model + m``
+sits at (d, m).  The data group of a rank is its column (the ranks with its
+model index), so the data axis's collectives combine shards of one slice;
+its model group is its row.  The placements ``batch_sharding`` and
+``replicated`` are what ``pipelines.train.batch_to_device`` and
+``pipelines.serve.Server`` take: JAX's ``NamedSharding`` of a batch over
+``data``, and of a replicated tree.
 """
 from __future__ import annotations
 
@@ -77,14 +81,14 @@ def make_mesh(data: int = -1, model: int = 1, devices=None) -> DeviceMesh:
     ``"cuda"`` (the default) or ``"cpu"``.  Without a process group, one is
     initialised from torchrun's environment or, failing that, a group of
     this one process (so the collectives still run, over one rank).
-    ``model > 1`` (tensor parallelism) is not ported yet and raises."""
+    Every rank of the default group must call it (the groups of both axes
+    are made collectively)."""
     device_type = torch.device(devices or "cuda").type
     if device_type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: make_mesh(devices='cpu') for a "
                            "mesh of CPU ranks")
-    if model != 1:
-        raise NotImplementedError(
-            f"a model axis of {model}: tensor parallelism is not ported yet")
+    if model < 1:
+        raise ValueError(f"a model axis of {model}")
     if not dist.is_initialized() and not multihost_init(
             backend=default_backend(device_type)):
         multihost_init(f"tcp://localhost:{free_port()}", 1, 0,
@@ -129,8 +133,17 @@ class Replicated:
 
 
 def batch_sharding(mesh: DeviceMesh) -> BatchSharding:
-    """Utterance batches are data-parallel: this rank's rows."""
+    """Utterance batches are data-parallel: this rank's rows, by its data
+    index (the ranks of one model group hold the same rows)."""
     return BatchSharding(mesh.get_local_rank(DATA_AXIS), mesh.size(0))
+
+
+def model_group(mesh: DeviceMesh | None):
+    """The process group of this rank's model axis, or None where there is
+    no mesh or the axis has one rank (nothing is sharded then)."""
+    if mesh is None or mesh_shape(mesh)[MODEL_AXIS] == 1:
+        return None
+    return mesh.get_group(MODEL_AXIS)
 
 
 def replicated(mesh: DeviceMesh | None = None) -> Replicated:

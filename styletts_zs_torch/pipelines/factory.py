@@ -26,6 +26,7 @@ from styletts_zs_torch.models.discriminators import MultiModalDiscriminator
 from styletts_zs_torch.models.layers import Conv, Dense
 from styletts_zs_torch.models.tts import StyleTTSZS
 from styletts_zs_torch.models.vocoder import Vocoder
+from styletts_zs_torch.parallel import tensor as tp
 
 PARTS = ("acoustic", "diffusion", "vocoder")
 
@@ -50,11 +51,15 @@ def _modules(cfg: Config, parts=PARTS) -> dict[str, nn.Module]:
     return {p: make[p]() for p in parts}
 
 
-def _empty_modules(cfg: Config, device: torch.device,
-                   parts=PARTS) -> dict[str, nn.Module]:
-    """The modules with uninitialised storage (no default init is run)."""
+def _empty_modules(cfg: Config, device: torch.device, parts=PARTS,
+                   shardings=None, group=None) -> dict[str, nn.Module]:
+    """The modules with uninitialised storage (no default init is run);
+    with ``shardings`` (``parallel.sharding.param_shardings``), each split
+    parameter at its chunk's shape (``parallel.tensor.shard_modules``)."""
     with torch.device("meta"):
         mods = _modules(cfg, parts)
+    if shardings is not None:
+        tp.shard_modules(mods, shardings, group)
     return {k: v.to_empty(device=device) for k, v in mods.items()}
 
 
@@ -138,15 +143,16 @@ def build_models(cfg: Config, params, *, device=None) -> Models:
     return Models(**build_frozen_modules(cfg, params, PARTS, device=device))
 
 
-def build_train_modules(cfg: Config, params, parts, *,
-                        device=None) -> dict[str, nn.Module]:
+def build_train_modules(cfg: Config, params, parts, *, device=None,
+                        shardings=None, group=None) -> dict[str, nn.Module]:
     """Working copies of ``parts`` on ``device`` in their dtypes (the
     diffusion net fp32, the rest the compute dtype), with gradients on:
     Flax casts its fp32 parameters to the compute dtype at each use, so
     the gradient is the compute-dtype one, which the trainer upcasts onto
-    its fp32 masters."""
+    its fp32 masters.  With ``shardings`` and the model ``group``, the
+    split parameters hold this rank's chunks, as ``params`` must."""
     dev = resolve_device(device)
-    mods = _empty_modules(cfg, dev, parts)
+    mods = _empty_modules(cfg, dev, parts, shardings, group)
     for part, mod in mods.items():
         mod.load_state_dict(params[part], strict=True)
         mod.to(_dtype(cfg, part)).train()

@@ -51,6 +51,20 @@ gradients is the global batch's gradient; the clip then sees the reduced
 gradient and every rank applies the same update.  ``state_tree`` and
 ``state_from_tree`` turn a train state into a tree ``save_params`` writes
 and back.
+
+Tensor parallelism (stage 1 on a mesh whose ``model`` axis has m > 1
+ranks): the generator's masters, moments, EMA and working modules hold
+this rank's chunks of the leaves that ``parallel.sharding.param_shardings``
+splits (JAX's rule; ``min_shard_dim`` the caller's, JAX's 256 by default),
+the discriminator stays whole.  The ranks of one model group hold the same
+rows and draw the same dropout masks (the seed is the data index's), the
+layers gather their output slices (``parallel/tensor.py``), the gradients
+of whole leaves are model rank 0's on every model rank, and the clip's
+global norm sums the squares of the split leaves over the model ranks and
+counts each whole leaf once.  ``whole_state`` gathers a state into what
+one process holds, which ``state_tree(state, trainer=)`` writes; a file one
+process wrote restores onto the chunks through ``parallel.sharding
+.shard_params``.
 """
 from __future__ import annotations
 
@@ -71,6 +85,7 @@ from styletts_zs_torch.ops import stft as stft_ops
 from styletts_zs_torch.ops.attention import length_mask
 from styletts_zs_torch.parallel import collectives
 from styletts_zs_torch.parallel import mesh as mesh_lib
+from styletts_zs_torch.parallel import sharding as sharding_lib
 from styletts_zs_torch.pipelines.factory import (build_frozen_modules,
                                                  build_train_modules,
                                                  resolve_device)
@@ -190,10 +205,13 @@ class AdamW:
         return AdamState(0, [torch.zeros_like(p) for p in params],
                          [torch.zeros_like(p) for p in params])
 
-    def update(self, grads, state: AdamState, params):
-        """(new params, new state); grads fp32, params updated out of place."""
-        norm = torch.linalg.vector_norm(torch.stack(
-            torch._foreach_norm(grads)))
+    def update(self, grads, state: AdamState, params, norm=None):
+        """(new params, new state); grads fp32, params updated out of place.
+        ``norm``: the gradient's global norm where the caller computes it
+        (the leaves split over model ranks), else that of ``grads``."""
+        if norm is None:
+            norm = torch.linalg.vector_norm(torch.stack(
+                torch._foreach_norm(grads)))
         scale = torch.where(norm < self.clip, torch.ones_like(norm),
                             self.clip / norm)
         g = torch._foreach_mul(grads, scale)
@@ -279,28 +297,92 @@ class Stage1Trainer:
     the global batch (``batch_to_device(..., sharding=)``) and a step
     computes the loss of the global batch: the aux losses and gradients
     that ``g_grads``/``d_grads`` return are the global batch's on every
-    rank, so every rank applies the same update."""
+    rank, so every rank applies the same update.  A mesh with a ``model``
+    axis above 1 splits the generator's leaves by ``param_shardings`` with
+    ``min_shard_dim``: the state and ``g_grads``' gradients then hold this
+    rank's chunks of them (``whole`` gathers a tree)."""
 
     def __init__(self, cfg: Config, params, *, device=None, seed: int = 0,
-                 mesh=None):
+                 mesh=None, min_shard_dim: int = 256):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dp = _data_group(mesh)
         if mesh is not None:
             seed += self.dp.sharding.index
-        mods = build_train_modules(cfg, params, G_PARTS + ("discriminator",),
-                                   device=self.device)
+        self.model_group = mesh_lib.model_group(mesh)
+        self.shardings = None
+        if self.model_group is not None:
+            self.shardings = sharding_lib.param_shardings(
+                {p: params[p] for p in G_PARTS}, mesh, cfg,
+                min_shard_dim=min_shard_dim)
+        mods = build_train_modules(cfg, self._local(params),
+                                   G_PARTS + ("discriminator",),
+                                   device=self.device,
+                                   shardings=self.shardings,
+                                   group=self.model_group)
         self.acoustic, self.vocoder = mods["acoustic"], mods["vocoder"]
         self.discriminator = mods["discriminator"]
+        if self.shardings is not None:
+            # which of the flat generator leaves are split
+            self._split_list = [self.shardings[p][k] is not None
+                                for p in G_PARTS for k in self._names(p)]
+            self._split = torch.tensor(self._split_list, device=self.device)
         self.g_tx = make_optimizer(cfg)
         self.d_tx = make_optimizer(cfg, cfg.train.lr_disc)
         self.rng = torch.Generator(device=self.device).manual_seed(seed)
 
     # -- parameters ---------------------------------------------------------
 
+    def _local(self, params):
+        """``params`` as this rank holds them: the generator's split leaves
+        cut to this rank's chunks."""
+        if self.shardings is None:
+            return params
+        return {**params, **sharding_lib.shard_params(
+            {p: params[p] for p in G_PARTS}, self.shardings)}
+
+    def whole(self, tree):
+        """A generator tree (masters, EMA or gradients, keyed by part) with
+        its split leaves gathered over the model ranks (every rank of the
+        group must call); other parts as they are."""
+        if self.shardings is None:
+            return tree
+        return sharding_lib.unshard_params(tree, self.shardings,
+                                           self.model_group)
+
+    def whole_state(self, state: TrainState) -> TrainState:
+        """The state as one process holds it (the model ranks gather)."""
+        if self.shardings is None:
+            return state
+
+        def moments(flat):
+            return _flat(self.whole(_unflat(state.g_params, flat)))
+        g = state.g_opt
+        return dataclasses.replace(
+            state, g_params=self.whole(state.g_params),
+            ema_params=self.whole(state.ema_params),
+            g_opt=AdamState(g.count, moments(g.mu), moments(g.nu)))
+
+    def _g_norm(self, grads: list[torch.Tensor]):
+        """The global norm of the generator's gradient: None (the
+        optimiser's own) without split leaves; else the squares of the
+        split leaves' norms summed over the model ranks, plus the whole
+        leaves' once."""
+        if self.shardings is None:
+            return None
+        sq = torch.stack(torch._foreach_norm(grads)) ** 2
+        split = self._split
+        sums = torch.stack([(sq * split).sum(), (sq * ~split).sum()])
+        split_sq = sums[:1].clone()
+        torch.distributed.all_reduce(split_sq, group=self.model_group)
+        return torch.sqrt(split_sq[0] + sums[1])
+
     def init_state(self, params) -> TrainState:
         """fp32 copies on the device, in the modules' parameter order:
-        masters, moments and the EMA."""
+        masters, moments and the EMA (this rank's chunks of split
+        leaves)."""
+        params = self._local(params)
+
         def copy(part):
             return {k: params[part][k].detach().to(self.device,
                                                    torch.float32).clone()
@@ -457,6 +539,11 @@ class Stage1Trainer:
                  else gr.float() for p, gr in zip(params, grads)]
         names = {p: self._names(p) for p in G_PARTS}
         grads, aux = self.dp.mean((grads, _detached(aux)))
+        if self.shardings is not None:
+            whole = iter(self._from_model_rank0(
+                [g for g, s in zip(grads, self._split_list) if not s]))
+            grads = [g if s else next(whole)
+                     for g, s in zip(grads, self._split_list)]
         return loss, aux, _unflat(names, grads)
 
     def d_grads(self, batch, rng=None):
@@ -466,7 +553,23 @@ class Stage1Trainer:
         names = dict(self.discriminator.named_parameters())
         grads, aux = self.dp.mean(([gr.float() for gr in grads],
                                    _detached(aux)))
-        return loss, aux, dict(zip(names, grads))
+        return loss, aux, dict(zip(names, self._from_model_rank0(grads)))
+
+    def _from_model_rank0(self, grads: list[torch.Tensor]):
+        """Model rank 0's gradients of whole (replicated) leaves on every
+        model rank, by one broadcast of them flattened.  Each model rank
+        computes them apart, and on the card backward kernels that sum
+        with atomics (the embedding's, cuDNN's weight gradients) can round
+        differently in two processes: the whole weights would drift apart
+        between the ranks.  Without a model axis, ``grads``."""
+        if self.model_group is None or not grads:
+            return grads
+        buf = torch.cat([g.reshape(-1) for g in grads])
+        torch.distributed.broadcast(
+            buf, torch.distributed.get_global_rank(self.model_group, 0),
+            group=self.model_group)
+        return [b.view_as(g) for b, g in
+                zip(buf.split([g.numel() for g in grads]), grads)]
 
     def _names(self, part: str) -> dict[str, None]:
         return dict.fromkeys(k for k, _ in getattr(self, part)
@@ -479,8 +582,10 @@ class Stage1Trainer:
         generator, the EMA; returns (new state, metrics as 0-d tensors)."""
         self.load(state.g_params, state.d_params)
         _, g_aux, g_grads = self.g_grads(batch, self.rng)
-        g_new, g_opt = self.g_tx.update(_flat(g_grads), state.g_opt,
-                                        _flat(state.g_params))
+        flat = _flat(g_grads)
+        g_new, g_opt = self.g_tx.update(flat, state.g_opt,
+                                        _flat(state.g_params),
+                                        norm=self._g_norm(flat))
         g_params = _unflat(state.g_params, g_new)
         self.load(g_params)
         _, d_aux, d_grads = self.d_grads(batch, self.rng)
@@ -719,10 +824,14 @@ class Stage3Trainer(_DiffusionTrainer):
 # train states as trees of tensors (``checkpoint.save_params``)
 # ---------------------------------------------------------------------------
 
-def state_tree(state):
+def state_tree(state, *, trainer=None):
     """A ``TrainState`` or ``DiffusionTrainState`` as a nested dict of
     tensors: the step and the optimiser's count as 0-d int64 tensors, the
-    moments' lists keyed by position, an absent EMA left out."""
+    moments' lists keyed by position, an absent EMA left out.  With the
+    ``trainer`` of a tensor-parallel stage 1, the whole state (gathered
+    over the model ranks), so the file is the one a process writes."""
+    if trainer is not None:
+        state = trainer.whole_state(state)
     if isinstance(state, int):
         return torch.tensor(state, dtype=torch.int64)
     if isinstance(state, (list, tuple)):

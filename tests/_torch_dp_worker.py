@@ -5,7 +5,8 @@ no mesh, the one-process reference the ranks are held against.
 
 runs as one rank of the process group that torchrun's environment names
 (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``; ``GROUP_RANK``
-the rank's host) and writes ``OUT_DIR/rank<r>.pt``: the mesh's shape, the
+the rank's host) and writes ``OUT_DIR/rank<r>.pt``: the mesh's shape and
+the (data, model) layouts ``make_mesh`` builds, the
 collectives' outputs, the two-host plan, ``Server(mesh=)``'s results, the
 synthesis on the mesh, ``Server(mesh=)`` with a failure planted on one
 rank, and the three trainers' data-parallel losses,
@@ -255,10 +256,10 @@ def main() -> None:
         return
     mesh = mesh_lib.make_mesh(devices="cpu")
     out = run(mesh)
-    try:
-        mesh_lib.make_mesh(model=2, devices="cpu")
-    except NotImplementedError:
-        out["model_axis_raises"] = True
+    n = torch.distributed.get_world_size()
+    # every (data, model) layout of the ranks
+    out["layouts"] = [mesh_lib.mesh_shape(mesh_lib.make_mesh(
+        n // m, m, devices="cpu")) for m in sorted({1, 2, n})]
     torch.save(out, out_dir / f"rank{torch.distributed.get_rank()}.pt")
     torch.distributed.destroy_process_group()
 

@@ -36,6 +36,7 @@ BLOCKED_RUN = textwrap.dedent('''
     from styletts_zs_torch.config import tiny_test_config
     from styletts_zs_torch import cli
     from styletts_zs_torch import bench
+    from styletts_zs_torch import graft_entry, scaling_bench
     from styletts_zs_torch.pipelines import (acceptance, factory, infer,
                                              pipeline, serve, train, verify)
     from styletts_zs_torch.parallel import mesh
@@ -62,6 +63,10 @@ BLOCKED_RUN = textwrap.dedent('''
         "run_pipeline": lambda: pipeline.run_pipeline(),
         "pipeline main": lambda: pipeline.main(["--steps1", "1"]),
         "make_mesh": lambda: mesh.make_mesh(),
+        "entry": lambda: graft_entry.entry(),
+        "graft_entry main": lambda: graft_entry.main([]),
+        "dryrun_multichip": lambda: graft_entry.dryrun_multichip(4),
+        "scaling_bench": lambda: scaling_bench.main(["--mesh", "1"]),
     }
     for name, call in calls.items():
         try:

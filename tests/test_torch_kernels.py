@@ -1259,15 +1259,19 @@ def test_synthesis_head_bound_counts_what_the_function_needs(T_):
 
 def test_adain_conv_bf16_wrapper_refuses_what_the_kernel_cannot_take():
     """Row 6's bf16 shape rule (``_check_sm90``): K 5, halo <= 18, C % 16,
-    C_out % 256, scale and shift of one kind."""
+    C_out % 128 (a block of 256 channels where C_out % 256 == 0, else of
+    128: a tensor-parallel chunk), scale and shift of one kind."""
     sc = torch.zeros(2, 4, 512)
     ok = torch.zeros(5, 512, 512)
     ac._check_sm90(sc, sc, ok, 9)
     ac._check_sm90(sc[:, 0], sc[:, 0], ok, 1)
+    ac._check_sm90(sc, sc, torch.zeros(5, 512, 128), 1)
+    assert [ac.sm90_tile(c) for c in (512, 256, 384, 128)] == \
+        [256, 256, 128, 128]
     for s1, s2, w, d in ((sc, sc, ok, 11), (sc, sc, torch.zeros(7, 512, 512), 1),
                          (sc, sc, torch.zeros(3, 512, 512), 1),
                          (sc, sc, torch.zeros(5, 8, 512), 1),
-                         (sc, sc, torch.zeros(5, 512, 128), 1),
+                         (sc, sc, torch.zeros(5, 512, 64), 1),
                          (sc, sc[:, 0], ok, 1)):
         with pytest.raises(ValueError):
             ac._check_sm90(s1, s2, w, d)

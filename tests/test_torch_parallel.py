@@ -95,9 +95,13 @@ def _close_grads(got: dict, ref: dict) -> None:
 # --- the mesh -----------------------------------------------------------------
 
 def test_make_mesh_shape_and_model_axis(group):
+    """The default mesh is (n, 1); ``make_mesh(data, model)`` lays out any
+    (data, model) whose product is the world size."""
+    n = group["n"]
     for r, rank in enumerate(group["ranks"]):
-        assert rank["shape"] == {"data": group["n"], "model": 1}
-        assert rank["model_axis_raises"]
+        assert rank["shape"] == {"data": n, "model": 1}
+        assert rank["layouts"] == [{"data": n // m, "model": m}
+                                   for m in sorted({1, 2, n})]
 
 
 def test_batch_sharding_takes_contiguous_rows():
